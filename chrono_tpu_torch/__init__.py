@@ -1,0 +1,13 @@
+"""chrono_tpu_torch — the PyTorch / CUDA port of chrono_tpu for NVIDIA Hopper.
+
+The JAX package ``chrono_tpu`` is the reference; this package mirrors its
+layout so that every module has a counterpart of the same path.  Plain tensor
+code is PyTorch; each Pallas TPU kernel on a ported path is a hand-written
+CUDA C++ kernel for ``sm_90a`` (sources in ``csrc/``, built on first CUDA use
+by ``ops.cuda._build``), with a plain PyTorch twin beside it that runs on CPU
+tensors.  This package never imports ``jax`` or ``chrono_tpu``.
+
+Ported so far: the granular DEM settling box (``dem.cell_dense.
+make_cell_dense_advance``), with its two kernels ``ops.cuda.dem_substep`` and
+``ops.cuda.migrate``.
+"""
