@@ -1,30 +1,45 @@
-"""Drive the PyTorch / CUDA port's DEM settling-box main path once on a GPU.
+"""Drive the PyTorch / CUDA port's main paths once on a GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Needs one CUDA card; raises without one.  It builds the two kernels of the
-path from ``chrono_tpu_torch/csrc`` and then runs:
+Needs one CUDA card; raises without one.  It builds the kernels of both
+paths from ``chrono_tpu_torch/csrc`` (one nvcc per source, all at once) and
+then runs:
 
-1. parity on the card: kernel K1 (``dem_substep``) against its plain twin
-   on the 120-particle box after one substep and after 3 cycles, and on a
-   random 64k-particle overlapping scene after one substep; kernel K2
+1. DEM parity on the card: kernel K1 (``dem_substep``) against its plain
+   twin on the 120-particle box after one substep and after 3 cycles, and on
+   a random 64k-particle overlapping scene after one substep; kernel K2
    (``dem_migrate``) against its twin, bit for bit, over 6 cycles;
-2. the main path at full size: ``bench.py``'s pinned scene (1 M spheres,
-   Hertz–Mindlin with single-step friction, C = 8, 2.1 d cells, 100
-   substeps per cycle, migration) for 1 warm-up and 2 timed cycles through
-   ``make_cell_dense_advance``, checked for overflow, loss, finite values,
-   momentum (the scene has no wall contact, so the mean velocity is pure
-   free fall) and that every kernel launch of the run was counted; then
-   each kernel against its twin at the main path's shapes, timed with CUDA
-   events.
+2. the DEM settling box at full size: ``bench.py``'s pinned scene (1 M
+   spheres, Hertz–Mindlin with single-step friction, C = 8, 2.1 d cells,
+   100 substeps per cycle, migration) for 1 warm-up and 2 timed cycles
+   through ``make_cell_dense_advance``, checked for overflow, loss, finite
+   values, momentum (the scene has no wall contact, so the mean velocity is
+   pure free fall) and that every kernel launch of the run was counted;
+   then each kernel against its twin at the main path's shapes, timed with
+   CUDA events;
+3. SPH parity on the card: each of the three WCSPH sweeps (``sph_adami``,
+   ``sph_momentum``, ``sph_continuity_drift``) against its twin on the mini
+   dam of tests/test_sph_pencil.py (756 markers), for both viscosity
+   models, after one substep and after 3 cycles of 4 substeps;
+4. the WCSPH dam break at full width: ``bench_suite.py``'s config #4 scene
+   (968,750 fluid markers + 3 floor layers, 1,069,751 in all, cells of
+   1.25·2h, C = 32, 8 substeps per cycle) for 1 warm-up and 2 timed cycles
+   through ``make_sph_advance_pencil``, checked for overflow, finite values,
+   immobile boundary markers, fluid density bounds and launch counts; then
+   each sweep against its twin at those shapes, timed with CUDA events;
+   with ``--profile``, a ``torch.profiler`` trace of one more cycle: its
+   wall time, the device time by kernel and the device's idle share.
 
 It prints the card's name and power limit, the build time, the errors and
-times, one JSON line describing each kernel, and as its last line
+times, one JSON line describing each kernel (with its bound: the least time
+the card could take for the same work), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -38,7 +53,13 @@ from chrono_tpu_torch.dem.cell_dense import (
     make_cell_dense_advance, substep_coefs, to_cells,
 )
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.fsi.sph.pencil import (
+    bin_to_cells, make_sph_advance_pencil, state_to_cells,
+)
+from chrono_tpu_torch.fsi.sph.state import FLUID, SPHParams
+from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
+from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     dem_substep, dem_substep_plain,
 )
@@ -51,6 +72,17 @@ G = 9.81
 # own backends to (tests/test_pallas_kernel.py)
 POS_TOL = dict(rtol=1e-4, atol=1e-5)
 VEL_TOL = dict(rtol=1e-3, atol=1e-4)
+# SPH: the tolerances tests/test_sph_pencil.py holds the JAX backends to
+# (ρ rtol 2e-5 / atol 1e-3; v rtol 1e-4 / atol 2e-5·max|v|; x rtol 1e-6 /
+# atol 1e-7); the Adami planes are held as velocities are
+SPH_RHO_TOL = dict(rtol=2e-5, atol=1e-3)
+SPH_POS_TOL = dict(rtol=1e-6, atol=1e-7)
+SPH_VEL_RTOL, SPH_VEL_ATOL = 1e-4, 2e-5
+# the published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+KERNELS = ("dem_substep", "migrate", "sph_substep")
 
 
 def require(ok, msg):
@@ -58,15 +90,23 @@ def require(ok, msg):
         raise RuntimeError(msg)
 
 
-def assert_close(got, ref, rtol, atol, what):
+def check_close(got, ref, rtol, atol, what):
     """Raise unless |got − ref| ≤ atol + rtol·|ref| everywhere; return
-    max |got − ref|."""
+    max |got − ref| and the largest ratio of |got − ref| to that tolerance
+    (≤ 1 passes)."""
     got, ref = got.double().cpu(), ref.double().cpu()
     err = (got - ref).abs()
-    bad = err > atol + rtol * ref.abs()
+    tol = atol + rtol * ref.abs()
+    bad = err > tol
     require(not bool(bad.any()) and bool(torch.isfinite(got).all()),
             f"{what}: {int(bad.sum())} values off, max err {float(err.max())}")
-    return float(err.max())
+    ratio = torch.where(err > 0, err / tol, torch.zeros_like(err))
+    return float(err.max()), float(ratio.max())
+
+
+def assert_close(got, ref, rtol, atol, what):
+    """``check_close``'s max |got − ref|."""
+    return check_close(got, ref, rtol, atol, what)[0]
 
 
 # ---------------------------------------------------------------- scenes
@@ -223,6 +263,46 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dem_contacts(feat, dims, C, radius):
+    """Overlapping pairs in (10, n_cells, C) slot planes, each counted from
+    both of its sides (the pairs whose force K1 must compute)."""
+    nx, ny, nz = dims
+    pos = feat[0:3].reshape(3, nx, ny, nz, C)
+    mask = feat[9].reshape(nx, ny, nz, C) > 0.5
+    pad_pos = torch.nn.functional.pad(pos, (0, 0, 1, 1, 1, 1, 1, 1))
+    pad_mask = torch.nn.functional.pad(mask, (0, 0, 1, 1, 1, 1, 1, 1))
+    eye = torch.eye(C, dtype=torch.bool, device=feat.device)
+    total = 0
+    for dx in (0, 1, 2):
+        for dy in (0, 1, 2):
+            for dz in (0, 1, 2):
+                nb = pad_pos[:, dx:dx + nx, dy:dy + ny, dz:dz + nz]
+                d2 = ((pos[..., :, None] - nb[..., None, :]) ** 2).sum(0)
+                ok = (mask[..., :, None]
+                      & pad_mask[dx:dx + nx, dy:dy + ny, dz:dz + nz][
+                          ..., None, :]
+                      & (d2 < (2.0 * radius) ** 2))
+                if (dx, dy, dz) == (1, 1, 1):
+                    ok &= ~eye
+                total += int(ok.sum())
+    return total
+
+
+# K1's float32 operations, counted from csrc/dem_substep.cu: per contact
+# (Hertz normal + capped tangential force + torque) and per particle (the
+# six walls' distance tests, gravity and the Euler update)
+DEM_OPS_PER_CONTACT = 110
+DEM_OPS_PER_PARTICLE = 80
+
+
 def main_path(card):
     params, bcs, grid, pos, C = bench_scene()
     n = len(pos)
@@ -291,21 +371,356 @@ def main_path(card):
           f"(plain twin {k1_plain_ms:.4f} ms)")
     print(f"K2 at 1M: bit-exact (max abs err {k2_err}), {k2_ms:.4f} ms "
           f"(plain twin {k2_plain_ms:.4f} ms)")
+    n_slots = field.feat.shape[1] * C
+    n_valid = int((field.feat[9] > 0.5).sum())
+    contacts = dem_contacts(field.feat, grid.dims, C, params.radius)
+    k1_bound = bound(2 * 10 * n_slots * 4, contacts * DEM_OPS_PER_CONTACT
+                     + n_valid * DEM_OPS_PER_PARTICLE)
+    # K2 reads the planes and ids, writes them and the per-cell count;
+    # its work is comparisons, a few per candidate of each valid particle
+    k2_bound = bound(2 * 11 * n_slots * 4 + grid.n_cells * 4, 27 * n_valid)
+    print(f"K1 at 1M: {contacts} contacts (both sides) among {n_valid} "
+          f"particles; bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
+    print(f"K2 at 1M: bound {k2_bound[0]:.4f} ms by {k2_bound[1]}")
     return [
         {"name": "dem_substep", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/dem_substep.cu",
          "replaces": "chrono_tpu/ops/pallas/dem_flat_kernel.py:169",
          "launches": launches["dem_substep"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "dem_migrate", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/migrate.cu",
          "replaces": "chrono_tpu/ops/pallas/migrate_kernel.py:130",
          "launches": launches["dem_migrate"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
     ]
 
 
+# ---------------------------------------------------------------- phase 3
+
+
+def mini_dam(viscosity, rebuild_every=4, device=None):
+    """The mini dam of tests/test_sph_pencil.py: d0 = 0.02, a (W/2, W, H)
+    fluid column with W = H = 0.12 in a 0.24-long tank, 3 floor layers,
+    cells of 2h: 756 markers, on ``device`` (the card by default).  The
+    laminar case takes a glycerol-like μ = 1 Pa·s, as tests/test_torch_sph.py
+    does: water's 1e-3 moves v by ~1e-6 m/s per substep, below the velocity
+    tolerance, so a wrong laminar term would pass."""
+    d0, W, H, L = 0.02, 0.12, 0.12, 0.24
+    params = SPHParams(d0=d0, h=1.2 * d0, rho0=1000.0,
+                       mu=1.0 if viscosity == "laminar" else 1e-3, c_s=10.0,
+                       gravity=(0.0, 0.0, -G), dt=1e-4,
+                       rebuild_every=rebuild_every,
+                       integrator="symplectic", viscosity_model=viscosity)
+    params = params.replace(dt=suggest_sph_dt(params))
+    fluid = grid_sample_box((0, 0, 0), (W / 2, W, H), d0)
+    floors = [grid_sample_box((-3 * d0, -3 * d0, -(k + 1) * d0),
+                              (L + 3 * d0, W + 3 * d0, -(k + 1) * d0), d0)
+              for k in range(3)]
+    state = make_sph_state(params, fluid, boundary_pts=np.concatenate(floors),
+                           device=device or DEV)
+    cell = 2.0 * params.h
+    grid = GridSpec(origin=(-4 * d0, -4 * d0, -5 * d0), cell_size=cell,
+                    dims=(int(np.ceil((L + 8 * d0) / cell)),
+                          int(np.ceil((W + 8 * d0) / cell)),
+                          int(np.ceil((2 * H + 9 * d0) / cell))))
+    return params, grid, state
+
+
+def sph_vel_close(got, ref, what):
+    scale = max(float(ref.abs().max()), 1e-6)
+    return check_close(got, ref, SPH_VEL_RTOL, SPH_VEL_ATOL * scale, what)
+
+
+def sph_p_close(got, ref, c, what, per_rho2=False):
+    """A pressure plane (p, or p/ρ² with ``per_rho2``), held at the ρ
+    tolerance carried through the EOS slope dp/dρ = c_s²: near ρ0 the Tait
+    pressure B((ρ/ρ0)^7 − 1) cancels, and one ulp of ρ/ρ0 is 7 of p/B."""
+    atol = c.c_s ** 2 * SPH_RHO_TOL["atol"] / (c.rho0 ** 2 if per_rho2
+                                               else 1.0)
+    return check_close(got, ref, SPH_RHO_TOL["rtol"], atol, what)
+
+
+def sph_sweeps_vs_twins(feat, cells, c, what):
+    """Each sweep by its kernel and by its twin from the same inputs (the
+    twin's output of the sweep before).  Returns (max abs error, its ratio
+    to the tolerance) of each output plane by kernel, and the twins'
+    outputs."""
+    n = feat.shape[1]
+    adami, vel, out = (feat.new_empty((k, n)) for k in (sph.N_ADAMI, 3, 10))
+    ref_a = sph.sph_adami_plain(feat, cells, c)
+    sph.sph_adami(feat, cells, c, adami)
+    ref_v = sph.sph_momentum_plain(feat, ref_a, cells, c)
+    sph.sph_momentum(feat, ref_a, cells, c, vel)
+    ref_o = sph.sph_continuity_drift_plain(feat, ref_v, cells, c)
+    sph.sph_continuity_drift(feat, ref_v, cells, c, out)
+    a, cd = f"{what} sph_adami", f"{what} sph_continuity_drift"
+    errs = {
+        "sph_adami": {
+            "p": sph_p_close(adami[0], ref_a[0], c, f"{a} p"),
+            "v_bc": sph_vel_close(adami[1:4], ref_a[1:4], f"{a} v_bc"),
+            "rho": check_close(adami[4], ref_a[4], **SPH_RHO_TOL,
+                                what=f"{a} rho"),
+            "p/rho2": sph_p_close(adami[5], ref_a[5], c, f"{a} p/rho2",
+                                  per_rho2=True),
+            "1/rho": check_close(adami[6], ref_a[6], **SPH_RHO_TOL,
+                                  what=f"{a} 1/rho")},
+        "sph_momentum": {"v": sph_vel_close(vel, ref_v,
+                                            f"{what} sph_momentum v")},
+        "sph_continuity_drift": {
+            "x": check_close(out[0:3], ref_o[0:3], **SPH_POS_TOL,
+                              what=f"{cd} x"),
+            "v": check_close(out[3:6], ref_o[3:6], 0, 0, what=f"{cd} v"),
+            "rho": check_close(out[6], ref_o[6], **SPH_RHO_TOL,
+                                what=f"{cd} rho"),
+            "fluid": check_close(out[7], ref_o[7], 0, 0,
+                                  what=f"{cd} fluid"),
+            "p": sph_p_close(out[8], ref_o[8], c, f"{cd} p"),
+            "1/rho": check_close(out[9], ref_o[9], **SPH_RHO_TOL,
+                                  what=f"{cd} 1/rho")}}
+    fluid = feat[sph.FLU] > 0.5
+    require(torch.equal(out[0:3, ~fluid], feat[0:3, ~fluid]),
+            f"{what}: sph_continuity_drift moved a boundary marker")
+    return errs, (ref_a, ref_v, ref_o)
+
+
+def format_errs(errs):
+    """Each plane's max abs error and, in brackets, its ratio to the
+    tolerance."""
+    return "; ".join(f"{k}: " + ", ".join(f"{p} {e:.3e} [{r:.3f}]" for p, (
+        e, r) in v.items()) for k, v in errs.items())
+
+
+def sph_one_substep(viscosity):
+    """The three sweeps vs their twins on the mini dam, with random fluid
+    velocities (σ = 0.1 m/s) and densities (±1 %) so that pressure, both
+    viscosities, δ-SPH and XSPH all act."""
+    params, grid, state = mini_dam(viscosity)
+    rng = np.random.default_rng(17)
+    fluid = state.kind == FLUID
+    n_f = int(fluid.sum())
+    vel = state.vel.clone()
+    vel[fluid] = torch.as_tensor(rng.normal(0.0, 0.1, (n_f, 3)),
+                                 dtype=torch.float32, device=DEV)
+    rho = state.rho.clone()
+    rho[fluid] *= torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, n_f),
+                                  dtype=torch.float32, device=DEV)
+    c = sph.sph_static_params(params)
+    feat, _, cells, ovf = state_to_cells(grid, 32, state.replace(
+        vel=vel, rho=rho), c)
+    require(int(ovf) == 0, "the mini dam overflows its cells")
+    return sph_sweeps_vs_twins(feat, cells, c, f"mini dam {viscosity}")[0]
+
+
+def sph_three_cycles(viscosity):
+    """The whole path for 3 cycles of 4 substeps on the card vs on the CPU
+    (twins); returns the max abs error over x, v and ρ."""
+    params, grid, state = mini_dam(viscosity)
+    (card, ovf_c), (plain, ovf_p) = (
+        make_sph_advance_pencil(params, grid, 32, device=dev)(state, 3)
+        for dev in (DEV, torch.device("cpu")))
+    require(int(ovf_c) == 0 and int(ovf_p) == 0, "mini dam overflow")
+    return max(assert_close(card.pos, plain.pos, **SPH_POS_TOL,
+                            what="3 cycles x"),
+               sph_vel_close(card.vel, plain.vel, "3 cycles v")[0],
+               assert_close(card.rho, plain.rho, **SPH_RHO_TOL,
+                            what="3 cycles rho"))
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def dam_scene(n_target=1_000_000):
+    """bench_suite.py's config #4 (bench_sph, bench_suite.py:449-586) with
+    its TPU-only knobs off (SUITE_SPH_C8=0, SUITE_SPH_ROT=0): d0 = 0.01,
+    W = H = (2 n)^(1/3) d0, L = 2 W, a (W/2, W, H) column with 5 % jitter
+    (seed 3), 3 floor layers, artificial viscosity, c_s = 10 sqrt(2 g H),
+    dt = suggest_sph_dt, 8 substeps per cycle, cells of 1.25·2h over
+    (L + 8 d0, W + 8 d0, 1.6 H + 8 d0) from −4 d0, C = 32."""
+    d0 = 0.01
+    W = (n_target * 2.0) ** (1 / 3) * d0
+    H, L = W, 2.0 * W
+    params = SPHParams(d0=d0, h=1.2 * d0, rho0=1000.0, mu=1e-3,
+                       c_s=10.0 * np.sqrt(2 * G * H), gravity=(0.0, 0.0, -G),
+                       dt=1e-4, rebuild_every=8, integrator="symplectic",
+                       viscosity_model="artificial")
+    params = params.replace(dt=suggest_sph_dt(params))
+    fluid = grid_sample_box((0, 0, 0), (W / 2, W, H), d0, jitter=0.05,
+                            seed=3)[:n_target]
+    floor = np.concatenate([grid_sample_box(
+        (-3 * d0, -3 * d0, -(k + 1) * d0), (L + 3 * d0, W + 3 * d0,
+                                            -(k + 1) * d0), d0)
+        for k in range(3)])
+    cell = 1.25 * 2.0 * params.h
+    ext = (L + 8 * d0, W + 8 * d0, 1.6 * H + 8 * d0)
+    grid = GridSpec(origin=(-4 * d0,) * 3, cell_size=cell,
+                    dims=tuple(int(np.ceil(e / cell)) for e in ext))
+    state = make_sph_state(params, fluid, boundary_pts=floor, device=DEV)
+    return params, grid, state, 32
+
+
+# the sweep of sph_substep_sym (sph_sym_kernel.py:317) each kernel ports;
+# each runs on _sym_sweep (:230), which reaches pl.pallas_call
+REPLACES = {"sph_adami": "chrono_tpu/ops/pallas/sph_sym_kernel.py:421",
+            "sph_momentum": "chrono_tpu/ops/pallas/sph_sym_kernel.py:490",
+            "sph_continuity_drift":
+                "chrono_tpu/ops/pallas/sph_sym_kernel.py:549"}
+# float32 operations per pair inside the support 2h that the function
+# needs.  A: per solid–fluid pair, one side (counted from
+# csrc/sph_substep.cu; sqrt and division count as one).  B and CD: per
+# unordered pair with a fluid side, both sides at once, as the TPU's
+# symmetric form evaluates them (sph_sym_kernel.py:491, :550,
+# flops_per_pair): the geometry, W and ∇W of a pair are needed once.
+SPH_OPS_PER_PAIR = {"sph_adami": 35, "sph_momentum": 80,
+                    "sph_continuity_drift": 70}
+
+
+def sph_pair_counts(feat, cells, h):
+    """The pairs inside the support 2h that each sweep's function needs:
+    A the ordered solid–fluid pairs (solid i, fluid j); B and CD the
+    unordered pairs with at least one fluid marker."""
+    n = feat.shape[1]
+    fluid = feat[sph.FLU] > 0.5
+    solid_fluid = fluid_fluid = 0
+    step = max(1, (1 << 24) // (27 * cells.capacity))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        j, ok, live = sph.neighbour_candidates(cells, lo, hi)
+        d = feat[0:3, lo:hi, None] - feat[0:3][:, j]
+        r = torch.sqrt((d * d).sum(0) + 1e-12)
+        inside = ok & (r / h < 2.0) & live[:, None]
+        fi = fluid[lo:hi, None]
+        solid_fluid += int((inside & ~fi & fluid[j]).sum())
+        fluid_fluid += int((inside & fi & fluid[j]).sum())
+    unordered = fluid_fluid // 2 + solid_fluid
+    return {"sph_adami": solid_fluid, "sph_momentum": unordered,
+            "sph_continuity_drift": unordered}
+
+
+def sph_main_path(card, profile):
+    params, grid, state, C = dam_scene()
+    n = state.n
+    fluid = state.kind == FLUID
+    top = int(bin_to_cells(grid, C, state.pos)[1].count.max())
+    print(f"SPH main path: {n} markers ({int(fluid.sum())} fluid), grid "
+          f"{grid.dims} ({grid.n_cells} cells, cell {grid.cell_size:.6f} m), "
+          f"C={C}, largest cell {top}, rebuild_every "
+          f"{params.rebuild_every}, dt {params.dt:.6e}, c_s {params.c_s:.4f}")
+    adv = make_sph_advance_pencil(params, grid, capacity=C, device=DEV)
+    names = ("sph_adami", "sph_momentum", "sph_continuity_drift")
+    for name in names:
+        getattr(sph, name).launches = 0
+    st, ovf = adv(state, 1)                                 # warm-up cycle
+    require(int(ovf) == 0, f"warm-up overflow {int(ovf)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = adv(st, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(sph, name).launches for name in names}
+    require(int(ovf) == 0, f"overflow {int(ovf)}")
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (st.pos, st.vel, st.rho)), "non-finite state")
+    require(torch.equal(st.pos[~fluid], state.pos[~fluid]),
+            "a boundary marker moved")
+    rho = st.rho[fluid]
+    rho_lo, rho_hi = float(rho.min()), float(rho.max())
+    require(0.7 * params.rho0 <= rho_lo and rho_hi <= 1.5 * params.rho0,
+            f"fluid density out of bounds: [{rho_lo}, {rho_hi}]")
+    require(launches == {name: 3 * params.rebuild_every for name in names},
+            f"launch counts {launches}")
+    steps = 2 * params.rebuild_every
+    vmax = float(st.vel[fluid].norm(dim=1).max())
+    print(f"SPH main path: ovf 0, launches {launches}, fluid rho "
+          f"[{rho_lo:.4f}, {rho_hi:.4f}], max |v| {vmax:.6e} m/s, boundary "
+          f"markers unmoved")
+    print(f"SPH main path: {steps} substeps of {n} markers in {wall:.4f} s "
+          f"= {n * steps / wall:.6e} marker-steps/s (bin, 16 substeps of 3 "
+          f"sweeps, unbin; host clock) on {card}")
+
+    # each sweep against its twin at the main path's shapes
+    c = sph.sph_static_params(params)
+    feat, _, cells, _ = state_to_cells(grid, C, st, c)
+    errs, (ref_a, ref_v, _) = sph_sweeps_vs_twins(feat, cells, c,
+                                                  "dam at 1M")
+    print(f"SPH sweeps vs twins at 1M, max abs err per plane: "
+          f"{format_errs(errs)}")
+    out = {k: feat.new_empty((r, n)) for k, r in
+           (("a", sph.N_ADAMI), ("b", 3), ("cd", 10))}
+    calls = {
+        "sph_adami": (lambda: sph.sph_adami(feat, cells, c, out["a"]),
+                      lambda: sph.sph_adami_plain(feat, cells, c)),
+        "sph_momentum": (
+            lambda: sph.sph_momentum(feat, ref_a, cells, c, out["b"]),
+            lambda: sph.sph_momentum_plain(feat, ref_a, cells, c)),
+        "sph_continuity_drift": (
+            lambda: sph.sph_continuity_drift(feat, ref_v, cells, c,
+                                             out["cd"]),
+            lambda: sph.sph_continuity_drift_plain(feat, ref_v, cells, c)),
+    }
+    pairs = sph_pair_counts(feat, cells, params.h)
+    table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
+    n_bytes = {"sph_adami": (10 + sph.N_ADAMI) * n * 4 + table,
+               "sph_momentum": (10 + sph.N_ADAMI + 3) * n * 4 + table,
+               "sph_continuity_drift": (10 + 3 + 10) * n * 4 + table}
+    rows = []
+    for name in names:
+        ms = cuda_ms(calls[name][0], 20)
+        plain_ms = cuda_ms(calls[name][1], 3)
+        bms, by = bound(n_bytes[name], pairs[name] * SPH_OPS_PER_PAIR[name])
+        plane = max(errs[name], key=lambda p: errs[name][p][0])
+        err = errs[name][plane][0]
+        over_tol = max(r for _, r in errs[name].values())
+        print(f"{name} at 1M: max abs err {err:.3e} ({plane} plane), "
+              f"{over_tol:.3f} of its tolerance, {ms:.4f} ms (plain twin "
+              f"{plain_ms:.4f} ms), {pairs[name]} pairs, bound {bms:.4f} ms "
+              f"by {by}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "chrono_tpu_torch/csrc/sph_substep.cu",
+            "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": err,
+            "max_abs_err_plane": plane, "err_over_tol": over_tol,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None})
+    if profile:
+        profile_cycle(adv, st)
+    return rows
+
+
+def profile_cycle(adv, state):
+    """Trace one 1-cycle advance call: wall time, device time per kernel
+    name, and the device's idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adv(state, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    print(f"profile, one SPH cycle: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms over {len(events)} device events, idle "
+          f"{1 - busy / (wall * 1e3):.4f} of the wall (profiler on)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms  {name[:90]}")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="trace one more SPH cycle with torch.profiler")
+    args = parser.parse_args()
     require(torch.cuda.is_available(), "chip_smoke.py needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -316,16 +731,18 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    for name in ("dem_substep", "migrate"):
+    _build.build_all(KERNELS)
+    for name in KERNELS:
         _build.load(name)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    for name in ("dem_substep", "migrate"):
+    for name in KERNELS:
         for line in (_build.BUILD_DIR / f"{name}.log").read_text() \
                 .splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # phase 1: parity on the card
+    # phase 1: DEM parity on the card
+    t0 = time.perf_counter()
     for mode in ("frictionless", "single_step"):
         print(f"K1 vs twin, 120 particles, 1 substep, {mode}: "
               f"max abs err {k1_small_substep(mode):.3e}")
@@ -335,9 +752,28 @@ def main():
           f"err {k1_one_substep(*overlap_scene()):.3e}")
     print(f"K2 vs twin, 6 cycles: bit-exact "
           f"({k2_six_cycles()} cells changed occupants)")
+    print(f"phase 1 took {time.perf_counter() - t0:.2f} s")
 
-    # phase 2: the main path at full size
+    # phase 2: the DEM main path at full size
+    t0 = time.perf_counter()
     kernels = main_path(card)
+    print(f"phase 2 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 3: SPH parity on the card
+    t0 = time.perf_counter()
+    for viscosity in ("artificial", "laminar"):
+        errs = sph_one_substep(viscosity)
+        print(f"SPH sweeps vs twins, mini dam, 1 substep, {viscosity}: "
+              f"{format_errs(errs)}")
+        print(f"SPH path vs twins, mini dam, 3 cycles x 4 substeps, "
+              f"{viscosity}: max abs err {sph_three_cycles(viscosity):.3e}")
+    print(f"phase 3 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 4: the WCSPH dam break at full width
+    t0 = time.perf_counter()
+    kernels += sph_main_path(card, args.profile)
+    print(f"phase 4 took {time.perf_counter() - t0:.2f} s")
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,5 +9,7 @@ tensors.  This package never imports ``jax`` or ``chrono_tpu``.
 
 Ported so far: the granular DEM settling box (``dem.cell_dense.
 make_cell_dense_advance``), with its two kernels ``ops.cuda.dem_substep`` and
-``ops.cuda.migrate``.
+``ops.cuda.migrate``; the WCSPH dam break (``fsi.sph.pencil.
+make_sph_advance_pencil``), with the three sweeps of
+``ops.cuda.sph_substep``.
 """

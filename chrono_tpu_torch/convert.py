@@ -1,10 +1,11 @@
 """Build the port's parameter objects from the JAX package's leaves.
 
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``PlaneBCs`` /
-``GridSpec`` as pytrees of arrays and static fields.  A caller that holds
-them flattens each into a mapping of field name → numpy array or Python
-scalar (nested mappings for the two materials); these functions turn such
-mappings into the port's objects.  So this package never sees JAX.
+``GridSpec`` / ``SPHParams`` / ``SPHState`` as pytrees of arrays and static
+fields.  A caller that holds them flattens each into a mapping of field
+name → numpy array or Python scalar (nested mappings for the two
+materials); these functions turn such mappings into the port's objects.
+So this package never sees JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from chrono_tpu_torch.collision.cell_list import GridSpec
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 
 
 def _scalar(x) -> float:
@@ -60,3 +62,34 @@ def grid_from_numpy(leaves: Mapping[str, Any]) -> GridSpec:
                     dims=tuple(int(d) for d in leaves["dims"]),
                     periodic=tuple(bool(p) for p in
                                    leaves.get("periodic", (False,) * 3)))
+
+
+def sph_params_from_numpy(leaves: Mapping[str, Any]) -> SPHParams:
+    """``SPHParams`` from the JAX ``SPHParams`` fields (floats as numpy
+    scalars, gravity as a (3,) array, the static fields as they are).  The
+    neighbour-list capacities of the gather backend are not carried over;
+    density reinitialisation is not ported and is refused."""
+    if int(leaves.get("density_reinit_every", 0)) != 0:
+        raise NotImplementedError("density reinitialisation is not ported")
+    floats = ("d0", "h", "rho0", "mu", "c_s", "dt", "eos_gamma",
+              "alpha_visc", "delta_sph", "xsph_eps")
+    static = ("kernel", "viscosity_model", "boundary_model", "shifting",
+              "rebuild_every", "integrator")
+    return SPHParams(
+        gravity=tuple(float(g) for g in np.asarray(leaves["gravity"])),
+        **{k: _scalar(leaves[k]) for k in floats},
+        **{k: leaves[k] for k in static if k in leaves})
+
+
+def sph_state_from_numpy(leaves: Mapping[str, Any], *, device) -> SPHState:
+    """``SPHState`` on ``device`` from the JAX ``SPHState`` fields (its
+    neighbour list, if given, is not carried over)."""
+    def t(name, dtype):
+        return torch.as_tensor(np.array(leaves[name]), dtype=dtype,
+                               device=device)
+
+    return SPHState(pos=t("pos", torch.float32), vel=t("vel", torch.float32),
+                    rho=t("rho", torch.float32), kind=t("kind", torch.int32),
+                    body_id=t("body_id", torch.int32),
+                    bce_local=t("bce_local", torch.float32),
+                    time=t("time", torch.float32))

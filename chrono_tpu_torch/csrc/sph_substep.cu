@@ -1,0 +1,315 @@
+// One symplectic WCSPH substep as three neighbour sweeps on cell-sorted
+// markers, one thread per marker.
+//
+// Replaces the TPU kernels chrono_tpu/ops/pallas/sph_sym_kernel.py
+// sph_substep_sym (sweeps A, B and the fused CD on _sym_sweep) and
+// chrono_tpu/ops/pallas/sph_pencil_kernel.py sph_substep_pencil (the same
+// physics as four dense sweeps on _pencil_sweep).  The physics is
+// chrono_tpu/fsi/sph/wcsph.py's, term by term.
+//
+// Layout: markers sorted by cell id (i*ny + j)*nz + k, as a structure of
+// arrays of N floats per plane.  state: pos xyz, vel xyz, rho, is_fluid,
+// p = Tait(rho), 1/max(rho, 1e-9).  adami: p, v_bc xyz, rho (Tait inverse
+// for solids), p/rho^2, 1/rho.  A cell table gives each cell's first sorted
+// index and count; only the first C markers of a cell take part, the rest
+// are copied through.
+//
+// Each thread walks the 27 neighbour cells (edge cells skipped) in a fixed
+// order and sums every pair onto its own marker only: no atomics, and a
+// deterministic sum.  A pair beyond the kernel support 2h adds exact zeros
+// in the plain twin, so it is skipped (first on r^2 with a safe margin, then
+// on q = r/h >= 2 exactly as the twin's branches).  A sweep's pair loop runs
+// only where its result is used: A on solid markers (the Adami values of a
+// fluid marker are its own), B and CD on fluid markers (solids are not
+// integrated; their x is written back unchanged, bit for bit).  Each sweep
+// reads the previous sweep's output on every neighbour, so each is its own
+// launch into a fresh buffer.  Per-marker terms (Tait p, its inverse, p/rho^2,
+// 1/rho) are computed once per marker, in the epilogue of the sweep before
+// the one that reads them: never per pair.
+//
+// What bounds it: at the 1 M-marker dam break (cells 1.25 x 2h) a fluid
+// marker tests ~660 candidates, of which ~8 % lie inside the support.  The
+// candidate loop (three position loads, served from L1 because the threads
+// of a warp share most neighbour cells, and a distance test) and the ~60
+// flops of each interacting pair bound it, not DRAM: each sweep moves ~70 MB.
+// Kept simple: no shared-memory staging of the neighbourhood, no half
+// stencil.
+
+#include <cuda_runtime.h>
+
+struct SphConsts {
+  float h, sigma, m, rho0, c_s, gamma, B, dhc, alpha_visc, mu, xsph_eps, dt;
+  float g[3];
+  int laminar;
+};
+
+namespace {
+
+enum { PX, PY, PZ, VX, VY, VZ, RHO, FLU, PRS, IRHO, kState };
+enum { A_P, A_VBX, A_VBY, A_VBZ, A_RHO, A_PR2, A_IRHO, kAdami };
+
+struct Cells {
+  const int* cell;
+  const int* start;
+  const int* count;
+  int nx, ny, nz, cap;
+};
+
+// Cubic spline W and dW/dr at q = r/h, zero for q >= 2 (kernels.py).
+__device__ __forceinline__ float cubic_w(float q, const SphConsts& k) {
+  if (q < 1.0f) return k.sigma * (1.0f - 1.5f * q * q + 0.75f * q * q * q);
+  const float t = 2.0f - q;
+  return k.sigma * (0.25f * t * t * t);
+}
+
+__device__ __forceinline__ float cubic_dwdr(float q, const SphConsts& k) {
+  if (q < 1.0f) return k.sigma / k.h * (-3.0f * q + 2.25f * q * q);
+  const float t = 2.0f - q;
+  return k.sigma / k.h * (-0.75f * t * t);
+}
+
+__device__ __forceinline__ float tait_p(float rho, const SphConsts& k) {
+  return k.B * (powf(rho / k.rho0, k.gamma) - 1.0f);
+}
+
+// Inverse Tait EOS, 1 + p/B clamped at 0.1 as the TPU kernels clamp it
+// (sph_pencil_kernel.py _tait_rho); the JAX gather backend clamps at 1e-3,
+// which differs only where p/B < -0.9.
+__device__ __forceinline__ float tait_rho(float p, const SphConsts& k) {
+  return k.rho0 * powf(fmaxf(1.0f + p / k.B, 0.1f), 1.0f / k.gamma);
+}
+
+// Calls pair(j, d, r2, r, q) for every marker j != i of the 27 neighbour
+// cells that lies inside the support (q < 2), in a fixed order.
+template <class Pair>
+__device__ __forceinline__ void for_pairs(const float* __restrict__ st,
+                                          int n, const Cells& c, int i,
+                                          const float xi[3],
+                                          const SphConsts& k, Pair&& pair) {
+  const int cell = c.cell[i];
+  const int ck = cell % c.nz;
+  const int cj = (cell / c.nz) % c.ny;
+  const int ci = cell / (c.nz * c.ny);
+  // q >= 2 for certain beyond this r^2 (margin over rounding)
+  const float r2_cut = 4.0004f * k.h * k.h;
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int ii = ci + dx;
+    if (ii < 0 || ii >= c.nx) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int jj = cj + dy;
+      if (jj < 0 || jj >= c.ny) continue;
+      for (int dz = -1; dz <= 1; ++dz) {
+        const int kk = ck + dz;
+        if (kk < 0 || kk >= c.nz) continue;
+        const int nc = (ii * c.ny + jj) * c.nz + kk;
+        const int s = c.start[nc];
+        const int e = s + min(c.count[nc], c.cap);
+        for (int j = s; j < e; ++j) {
+          if (j == i) continue;
+          const float d[3] = {xi[0] - st[PX * n + j], xi[1] - st[PY * n + j],
+                              xi[2] - st[PZ * n + j]};
+          const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+          if (r2 > r2_cut) continue;
+          const float r = sqrtf(r2 + 1e-12f);
+          const float q = r / k.h;
+          if (q >= 2.0f) continue;
+          pair(j, d, r2, r, q);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ bool live(const Cells& c, int i) {
+  return i - c.start[c.cell[i]] < c.cap;
+}
+
+// ---- sweep A: Adami wall BC (sph_pencil_kernel.py:222-258) ----
+__global__ void __launch_bounds__(256)
+sph_adami_kernel(const float* __restrict__ st, Cells c,
+                 float* __restrict__ out, int n, SphConsts k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float flu = st[FLU * n + i];
+  const float v[3] = {st[VX * n + i], st[VY * n + i], st[VZ * n + i]};
+  float p_all = st[PRS * n + i];
+  float vb[3] = {v[0], v[1], v[2]};
+  if (flu < 0.5f && live(c, i)) {
+    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+    float swp = 0.0f, sw = 0.0f, swv[3] = {0.0f, 0.0f, 0.0f};
+    for_pairs(st, n, c, i, xi, k,
+              [&](int j, const float* d, float, float, float q) {
+                if (st[FLU * n + j] < 0.5f) return;   // fluid neighbours
+                const float w = cubic_w(q, k);
+                // hydrostatic term (g . (x_i - x_j)) rho_j for fixed walls
+                const float hydro =
+                    (k.g[0] * d[0] + k.g[1] * d[1] + k.g[2] * d[2]) *
+                    st[RHO * n + j];
+                swp += w * (st[PRS * n + j] + hydro);
+                swv[0] += w * st[VX * n + j];
+                swv[1] += w * st[VY * n + j];
+                swv[2] += w * st[VZ * n + j];
+                sw += w;
+              });
+    const bool has = sw > 1e-12f;
+    const float den = fmaxf(sw, 1e-12f);
+    p_all = has ? swp / den : 0.0f;
+    if (has)
+      for (int a = 0; a < 3; ++a) vb[a] = 2.0f * v[a] - swv[a] / den;
+  }
+  const float rho_all = flu > 0.5f ? st[RHO * n + i] : tait_rho(p_all, k);
+  out[A_P * n + i] = p_all;
+  for (int a = 0; a < 3; ++a) out[(A_VBX + a) * n + i] = vb[a];
+  out[A_RHO * n + i] = rho_all;
+  out[A_PR2 * n + i] = p_all / (rho_all * rho_all);
+  out[A_IRHO * n + i] = 1.0f / rho_all;
+}
+
+// ---- sweep B: momentum + kick (sph_pencil_kernel.py:260-319) ----
+__global__ void __launch_bounds__(256)
+sph_momentum_kernel(const float* __restrict__ st,
+                    const float* __restrict__ ad, Cells c,
+                    float* __restrict__ out, int n, SphConsts k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v[3] = {st[VX * n + i], st[VY * n + i], st[VZ * n + i]};
+  float v1[3] = {v[0], v[1], v[2]};
+  if (st[FLU * n + i] > 0.5f && live(c, i)) {
+    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+    const float pr2_i = ad[A_PR2 * n + i];
+    const float rho_i = ad[A_RHO * n + i];
+    const float irho_i = ad[A_IRHO * n + i];
+    const float eps_h2 = 0.01f * k.h * k.h;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    for_pairs(st, n, c, i, xi, k,
+              [&](int j, const float* d, float r2, float r, float q) {
+                const float gf = cubic_dwdr(q, k) / fmaxf(r, 1e-12f);
+                const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
+                // viscous velocity: the ghost velocity of a solid neighbour
+                const float vij[3] = {v[0] - ad[A_VBX * n + j],
+                                      v[1] - ad[A_VBY * n + j],
+                                      v[2] - ad[A_VBZ * n + j]};
+                const float cp = k.m * (pr2_i + ad[A_PR2 * n + j]);
+                for (int a = 0; a < 3; ++a) acc[a] -= cp * gw[a];
+                if (k.laminar) {
+                  const float cl = k.m * 2.0f * k.mu * irho_i *
+                                   ad[A_IRHO * n + j] *
+                                   (d[0] * gw[0] + d[1] * gw[1] +
+                                    d[2] * gw[2]) / (r2 + eps_h2);
+                  for (int a = 0; a < 3; ++a) acc[a] += cl * vij[a];
+                } else {
+                  const float vr = vij[0] * d[0] + vij[1] * d[1] +
+                                   vij[2] * d[2];
+                  if (vr < 0.0f) {
+                    const float mu_ij = k.h * vr / (r2 + eps_h2);
+                    const float pi = -k.alpha_visc * k.c_s * mu_ij /
+                                     (0.5f * (rho_i + ad[A_RHO * n + j]));
+                    for (int a = 0; a < 3; ++a) acc[a] -= k.m * pi * gw[a];
+                  }
+                }
+              });
+    for (int a = 0; a < 3; ++a) v1[a] = v[a] + k.dt * (acc[a] + k.g[a]);
+  }
+  for (int a = 0; a < 3; ++a) out[a * n + i] = v1[a];
+}
+
+// ---- sweep CD: continuity + delta-SPH at the kicked velocities, then XSPH
+// drift with the weight at rho^n (sph_sym_kernel.py:495-555) ----
+__global__ void __launch_bounds__(256)
+sph_continuity_drift_kernel(const float* __restrict__ st,
+                            const float* __restrict__ vel, Cells c,
+                            float* __restrict__ out, int n, SphConsts k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float flu = st[FLU * n + i];
+  const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+  const float v1[3] = {vel[i], vel[n + i], vel[2 * n + i]};
+  const float rho_i = st[RHO * n + i];
+  float rho = rho_i;
+  float x1[3] = {xi[0], xi[1], xi[2]};
+  if (flu > 0.5f && live(c, i)) {
+    float drho = 0.0f, diff = 0.0f, corr[3] = {0.0f, 0.0f, 0.0f};
+    for_pairs(st, n, c, i, xi, k,
+              [&](int j, const float* d, float r2, float r, float q) {
+                const float gf = cubic_dwdr(q, k) / fmaxf(r, 1e-12f);
+                const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
+                const float vj[3] = {vel[j], vel[n + j], vel[2 * n + j]};
+                drho += k.m * ((v1[0] - vj[0]) * gw[0] +
+                               (v1[1] - vj[1]) * gw[1] +
+                               (v1[2] - vj[2]) * gw[2]);
+                if (st[FLU * n + j] < 0.5f) return;   // fluid-fluid below
+                const float rho_j = st[RHO * n + j];
+                const float psi = 2.0f * (rho_j - rho_i) *
+                                  -(d[0] * gw[0] + d[1] * gw[1] +
+                                    d[2] * gw[2]) / (r2 + 1e-12f);
+                diff += k.m * st[IRHO * n + j] * psi;
+                const float wx = k.m / fmaxf(0.5f * (rho_i + rho_j), 1e-9f) *
+                                 cubic_w(q, k);
+                for (int a = 0; a < 3; ++a) corr[a] += wx * (vj[a] - v1[a]);
+              });
+    rho = rho_i + k.dt * (drho + k.dhc * diff);
+    for (int a = 0; a < 3; ++a)
+      x1[a] = xi[a] + k.dt * (v1[a] + k.xsph_eps * corr[a]);
+  }
+  rho = fminf(fmaxf(rho, 0.7f * k.rho0), 1.5f * k.rho0);
+  for (int a = 0; a < 3; ++a) {
+    out[(PX + a) * n + i] = x1[a];
+    out[(VX + a) * n + i] = v1[a];
+  }
+  out[RHO * n + i] = rho;
+  out[FLU * n + i] = flu;
+  out[PRS * n + i] = tait_p(rho, k);
+  out[IRHO * n + i] = 1.0f / fmaxf(rho, 1e-9f);
+}
+
+int blocks_for(int n) { return (n + 255) / 256; }
+
+}  // namespace
+
+// Launchers: run on `stream` and return cudaGetLastError() (0 on success).
+// The caller checks shapes, types, devices and that no input is the output.
+
+extern "C" int sph_adami_launch(const float* state, const int* cell,
+                                const int* start, const int* count,
+                                float* out, int n, int nx, int ny, int nz,
+                                int cap, const SphConsts* k, void* stream,
+                                int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Cells c{cell, start, count, nx, ny, nz, cap};
+  sph_adami_kernel<<<blocks_for(n), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(state, c, out, n,
+                                                          *k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sph_momentum_launch(const float* state, const float* adami,
+                                   const int* cell, const int* start,
+                                   const int* count, float* out, int n,
+                                   int nx, int ny, int nz, int cap,
+                                   const SphConsts* k, void* stream,
+                                   int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Cells c{cell, start, count, nx, ny, nz, cap};
+  sph_momentum_kernel<<<blocks_for(n), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(state, adami, c,
+                                                             out, n, *k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sph_continuity_drift_launch(const float* state,
+                                           const float* vel, const int* cell,
+                                           const int* start,
+                                           const int* count, float* out,
+                                           int n, int nx, int ny, int nz,
+                                           int cap, const SphConsts* k,
+                                           void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Cells c{cell, start, count, nx, ny, nz, cap};
+  sph_continuity_drift_kernel<<<blocks_for(n), 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      state, vel, c, out, n, *k);
+  return static_cast<int>(cudaGetLastError());
+}

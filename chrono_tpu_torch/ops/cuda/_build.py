@@ -29,28 +29,41 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so``; the
-    compiler's output (ptxas register and spill counts) goes to
-    ``_build/<name>.log``."""
-    src = CSRC / f"{name}.cu"
+def _stale(name: str) -> bool:
     lib = BUILD_DIR / f"lib{name}.so"
+    return (not lib.exists()
+            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+
+
+def build_all(names) -> None:
+    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so`` for each name
+    whose library is missing or older than its source, one nvcc process per
+    source, all started together; the compiler's output (ptxas register and
+    spill counts) goes to ``_build/<name>.log``."""
+    stale = [name for name in names if _stale(name)]
+    if not stale:
+        return
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-    (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    jobs = []
+    for name in stale:
+        tmp = (BUILD_DIR / f"lib{name}.so").with_suffix(f".{os.getpid()}.tmp")
+        jobs.append((name, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, proc in jobs:          # wait for every process first
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+            continue
+        (BUILD_DIR / f"{name}.log").write_text(out + err)
+        os.replace(tmp, BUILD_DIR / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-        build(name)
-    return ctypes.CDLL(str(lib))
+    build_all([name])
+    return ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))

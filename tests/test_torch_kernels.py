@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins.
 
 Tests marked ``cuda`` need a CUDA card and skip without one; they make the
-same checks as phase 1 of ``chip_smoke.py``.  Run them on the card with
+same checks as phases 1 and 3 of ``chip_smoke.py``.  Run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``: the
 machine with the card has no JAX, which ``tests/conftest.py`` imports.
 The others run anywhere: the package imports and runs its twins without a
@@ -19,9 +19,13 @@ import torch
 
 import chrono_tpu_torch
 from chrono_tpu_torch.dem.cell_dense import substep_coefs, to_cells
+from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.ops.cuda import _build
+from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import dem_substep
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
+
+SPH_SWEEPS = ("sph_adami", "sph_momentum", "sph_continuity_drift")
 
 
 @pytest.fixture
@@ -48,7 +52,7 @@ def test_package_imports_without_building(monkeypatch):
         cwd=Path(chrono_tpu_torch.__file__).parents[1])
     assert probe.stdout.strip() == "[]"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "dem_substep.cu", "migrate.cu"}
+        "dem_substep.cu", "migrate.cu", "sph_substep.cu"}
 
     def no_build(name):
         raise AssertionError(f"built {name} for a CPU tensor")
@@ -122,3 +126,105 @@ def test_kernel_wrappers_check_inputs(card):
         dem_migrate(field.feat, field.ids.long(),
                     torch.empty_like(field.feat), torch.empty_like(field.ids),
                     count, grid)
+
+
+def _sph_launches():
+    return tuple(getattr(sph, name).launches for name in SPH_SWEEPS)
+
+
+def _mini_dam_cells(device):
+    from chip_smoke import mini_dam
+    params, grid, state = mini_dam("artificial", device=device)
+    c = sph.sph_static_params(params)
+    feat, _, cells, _ = state_to_cells(grid, 32, state, c)
+    return feat, cells, c
+
+
+def test_sph_twins_run_on_cpu_without_building(monkeypatch):
+    """CPU tensors run the SPH twins: no build, no launch counted, and the
+    three sweeps compose into sph_substep_plain."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    feat, cells, c = _mini_dam_cells("cpu")
+    n = feat.shape[1]
+    before = _sph_launches()
+    out = torch.empty_like(feat)
+    sph.sph_substep(feat, cells, c, feat.new_empty((sph.N_ADAMI, n)),
+                    feat.new_empty((3, n)), out)
+    assert _sph_launches() == before
+    assert torch.equal(out, sph.sph_substep_plain(feat, cells, c))
+    fluid = feat[sph.FLU] > 0.5
+    assert torch.equal(out[0:3, ~fluid], feat[0:3, ~fluid])
+    assert bool((out[0:3, fluid] != feat[0:3, fluid]).any())
+
+
+def test_sph_wrappers_raise_on_other_devices():
+    feat, cells, c = _mini_dam_cells("cpu")
+    n = feat.shape[1]
+    meta = torch.empty((10, n), device="meta")
+    mcells = sph.SortedCells(*(t.to("meta") for t in
+                               (cells.cell, cells.start, cells.count)),
+                             dims=cells.dims, capacity=cells.capacity)
+    with pytest.raises(ValueError):
+        sph.sph_adami(meta, mcells, c, torch.empty((7, n), device="meta"))
+    with pytest.raises(ValueError):
+        sph.sph_momentum(meta, torch.empty((7, n), device="meta"), mcells,
+                         c, torch.empty((3, n), device="meta"))
+    with pytest.raises(ValueError):
+        sph.sph_continuity_drift(meta, torch.empty((3, n), device="meta"),
+                                 mcells, c, torch.empty_like(meta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("viscosity", ["artificial", "laminar"])
+def test_sph_kernels_match_twins(card, viscosity):
+    """Phase 3 of chip_smoke.py: each sweep against its twin after one
+    substep, and the whole path after 3 cycles, on the mini dam."""
+    before = _sph_launches()
+    errs = card.sph_one_substep(viscosity)
+    assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+               for e, r in planes.values())
+    assert card.sph_three_cycles(viscosity) < 1e-2
+    assert all(a > b for a, b in zip(_sph_launches(), before))
+
+
+@pytest.mark.cuda
+def test_sph_wrappers_check_inputs(card):
+    feat, cells, c = _mini_dam_cells("cuda")
+    n = feat.shape[1]
+    adami = feat.new_empty((sph.N_ADAMI, n))
+    with pytest.raises(ValueError):               # in place
+        sph.sph_continuity_drift(feat, feat[3:6].contiguous(), cells, c,
+                                 feat)
+    with pytest.raises(ValueError):               # wrong dtype
+        sph.sph_adami(feat.double(), cells, c, adami)
+    with pytest.raises(ValueError):               # wrong shape
+        sph.sph_momentum(feat, adami[:3].contiguous(), cells, c,
+                         feat.new_empty((3, n)))
+    with pytest.raises(ValueError):               # table of the wrong type
+        sph.sph_adami(feat, sph.SortedCells(
+            cells.cell.long(), cells.start, cells.count, cells.dims,
+            cells.capacity), c, adami)
+    sph.sph_adami(feat, cells, c, adami)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(adami).all())
+
+
+@pytest.mark.cuda
+def test_sph_kernels_match_twins_past_capacity(card):
+    """With C below the fullest cell, the kernels and the twins agree on
+    which markers take part and carry the rest through."""
+    params, grid, state = card.mini_dam("laminar", device="cuda")
+    c = sph.sph_static_params(params)
+    top = int(state_to_cells(grid, 32, state, c)[2].count.max())
+    feat, _, cells, ovf = state_to_cells(grid, top - 4, state, c)
+    assert int(ovf) == 4
+    errs, (_, _, ref) = card.sph_sweeps_vs_twins(feat, cells, c, "C < max")
+    assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+               for e, r in planes.values())
+    start = cells.start.long()[cells.cell.long()]
+    past = torch.arange(feat.shape[1], device="cuda") - start >= top - 4
+    assert bool(past.any())
+    assert torch.equal(ref[0:7, past], feat[0:7, past])
