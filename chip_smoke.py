@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Needs one CUDA card; raises without one.  It builds the kernels of both
-paths from ``chrono_tpu_torch/csrc`` (one nvcc per source, all at once) and
-then runs:
+Needs one CUDA card; raises without one.  It builds the kernels of the
+three paths from ``chrono_tpu_torch/csrc`` (one nvcc per source, all at
+once) and then runs:
 
 1. DEM parity on the card: kernel K1 (``dem_substep``) against its plain
    twin on the 120-particle box after one substep and after 3 cycles, and on
@@ -29,7 +29,24 @@ then runs:
    immobile boundary markers, fluid density bounds and launch counts; then
    each sweep against its twin at those shapes, timed with CUDA events;
    with ``--profile``, a ``torch.profiler`` trace of one more cycle: its
-   wall time, the device time by kernel and the device's idle share.
+   wall time, the device time by kernel and the device's idle share;
+5. CRM parity on the card, on the mini bed of tests/test_torch_crm.py
+   (0.4 × 0.2 × 0.1 m at d0 = 0.02, 5,017 markers): each sweep
+   (``crm_momentum`` in its three modes, ``crm_gradv_stress``) against its
+   twin after one substep of a stirred state, 3 cycles of
+   ``make_crm_advance_pencil`` on the card against the twins on the CPU,
+   and the whole-outer kernel ``crm_outer`` (4 substeps) against the
+   per-sweep kernels and against its twin;
+6. CRM terrain at full width: a 10 × 4 × 0.2 m vehicle test lane of the
+   demo's loam at d0 = 0.02 (1,000,000 granular markers and the wall
+   layers, cells of 2h, C = 32, 4 substeps per cycle) for 1 warm-up and
+   2 timed cycles through ``make_crm_advance_pencil``, checked for
+   overflow, finite values, walls unmoved bit for bit and every granular
+   stress inside the Drucker–Prager cone; then the same cycles through
+   the engine's whole-outer path (bin, one ``crm_outer`` launch, unbin);
+   then each kernel against its twin at those shapes, timed with CUDA
+   events, and ``crm_outer`` against its 8 per-sweep launches on the
+   demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05).
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -53,12 +70,18 @@ from chrono_tpu_torch.dem.cell_dense import (
     make_cell_dense_advance, substep_coefs, to_cells,
 )
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.fsi.crm_terrain import make_crm_terrain_state
+from chrono_tpu_torch.fsi.sph.crm import CRMParams
+from chrono_tpu_torch.fsi.sph.crm_pencil import (
+    cells_to_crm_state, make_crm_advance_pencil, make_crm_engine,
+)
 from chrono_tpu_torch.fsi.sph.pencil import (
     bin_to_cells, make_sph_advance_pencil, state_to_cells,
 )
 from chrono_tpu_torch.fsi.sph.state import FLUID, SPHParams
 from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
+from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     dem_substep, dem_substep_plain,
@@ -82,7 +105,8 @@ SPH_VEL_RTOL, SPH_VEL_ATOL = 1e-4, 2e-5
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-KERNELS = ("dem_substep", "migrate", "sph_substep")
+KERNELS = ("dem_substep", "migrate", "sph_substep", "crm_substep",
+           "crm_outer")
 
 
 def require(ok, msg):
@@ -716,6 +740,429 @@ def profile_cycle(adv, state):
         print(f"  {ms:9.3f} ms  {name[:90]}")
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+# CRM: the tolerances tests/test_crm.py holds the JAX TPU engines to against
+# the gather backend after one substep (x rtol 1e-6 / atol 1e-7; v rtol 1e-4
+# / atol 3e-5·max|v|; ρ rtol 2e-5 / atol 1e-2; σ rtol 1e-4 / atol
+# 2e-4·max|σ|, σ_o at its own scale as tests/test_torch_crm.py holds it;
+# the reaction rtol 1e-4 / atol 5e-5·max|a|); 1/ρ and 1/ρ² at ρ's rtol
+CRM_POS_TOL = dict(rtol=1e-6, atol=1e-7)
+CRM_RHO_TOL = dict(rtol=2e-5, atol=1e-2)
+CRM_INV_TOL = dict(rtol=4e-5, atol=0.0)
+
+
+def crm_scaled_close(got, ref, rtol, atol_rel, what):
+    """``check_close`` with atol = atol_rel · max |ref|."""
+    scale = max(float(ref.abs().max()), 1e-6)
+    return check_close(got, ref, rtol, atol_rel * scale, what)
+
+
+def crm_soil(d0):
+    """The firm cohesive loam of demos/demo_vehicle_crm.py:70-81 at spacing
+    d0: ρ0 = 1700, c_s = 40, α = 0.3, dt = 1e-4, E = 4e6, ν = 0.3,
+    tan φ = 0.9, c = 2000 Pa, h = 1.2 d0, cubic kernel, 4 substeps per
+    cycle."""
+    params = SPHParams(d0=d0, h=1.2 * d0, rho0=1700.0, mu=0.0, c_s=40.0,
+                       gravity=(0.0, 0.0, -G), dt=1e-4, alpha_visc=0.3,
+                       rebuild_every=4)
+    soil = CRMParams(youngs=4e6, poisson=0.3, friction_angle=0.9,
+                     cohesion=2000.0)
+    return params, soil
+
+
+def crm_bed(size, depth, d0, device=None):
+    """A terrain bed of the demo's loam from ``make_crm_terrain_state``
+    (air = 12 d0, margin = 6 d0), on ``device`` (the card by default)."""
+    params, soil = crm_soil(d0)
+    state, grid = make_crm_terrain_state(params, soil, size, depth, air=12.0,
+                                         margin=6.0, device=device or DEV)
+    return params, soil, grid, state
+
+
+def crm_stirred_mini():
+    """The mini bed after 2 cycles on the card, then granular velocities
+    perturbed by N(0, 0.05 m/s) and stresses by ±5 % (seed 23), as
+    tests/test_torch_crm.py stirs it: at rest the viscosity and spin terms
+    are zero and nothing yields."""
+    params, soil, grid, state = crm_bed((0.4, 0.2), 0.1, 0.02)
+    state, ovf = make_crm_advance_pencil(params, soil, grid, 32,
+                                         device=DEV)(state, 2)
+    require(int(ovf) == 0, "the mini bed overflows its cells")
+    rng = np.random.default_rng(23)
+    gran = (state.kind == FLUID).cpu().numpy()
+    n_g = int(gran.sum())
+    vel, tau_d, tau_o = (a.cpu().numpy().copy() for a in
+                         (state.vel, state.tau_d, state.tau_o))
+    vel[gran] += rng.normal(0.0, 0.05, (n_g, 3))
+    tau_d[gran] *= 1.0 + rng.uniform(-0.05, 0.05, (n_g, 3))
+    tau_o[gran] *= 1.0 + rng.uniform(-0.05, 0.05, (n_g, 3))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=DEV)
+
+    return params, soil, grid, state.replace(vel=t(vel), tau_d=t(tau_d),
+                                             tau_o=t(tau_o))
+
+
+def crm_state_errs(got, ref, what):
+    """(max abs error, its ratio to the tolerance) of each plane group of
+    two (17, N) CRM states."""
+    return {
+        "x": check_close(got[crm.PX:crm.PZ + 1], ref[crm.PX:crm.PZ + 1],
+                         **CRM_POS_TOL, what=f"{what} x"),
+        "v": crm_scaled_close(got[crm.VX:crm.VZ + 1], ref[crm.VX:crm.VZ + 1],
+                              1e-4, 3e-5, f"{what} v"),
+        "rho": check_close(got[crm.RHO], ref[crm.RHO], **CRM_RHO_TOL,
+                           what=f"{what} rho"),
+        "sigma_d": crm_scaled_close(got[crm.SXX:crm.SZZ + 1],
+                                    ref[crm.SXX:crm.SZZ + 1], 1e-4, 2e-4,
+                                    f"{what} sigma_d"),
+        "sigma_o": crm_scaled_close(got[crm.SXY:crm.SYZ + 1],
+                                    ref[crm.SXY:crm.SYZ + 1], 1e-4, 2e-4,
+                                    f"{what} sigma_o"),
+        "flags": check_close(got[crm.GRN:crm.VAL + 1],
+                             ref[crm.GRN:crm.VAL + 1], 0, 0,
+                             what=f"{what} flags"),
+        "1/rho2": check_close(got[crm.DER], ref[crm.DER], **CRM_INV_TOL,
+                              what=f"{what} 1/rho2")}
+
+
+def crm_sweeps_vs_twins(feat, cells, c, what):
+    """Each sweep by its kernel and by its twin from the same inputs (G from
+    the twin's M output); M in its three modes, which must agree bit for
+    bit on what they share.  Returns the errors by kernel and plane, and
+    the twins' outputs."""
+    n = feat.shape[1]
+    mv, mv2, acc, acc2, out = (feat.new_empty((r, n)) for r in (
+        crm.N_MV, crm.N_MV, 3, 3, crm.N_STATE))
+    ref_mv, ref_acc = crm.crm_momentum_plain(feat, cells, c, with_acc=True)
+    crm.crm_momentum(feat, cells, c, mv=mv)                 # the substep
+    crm.crm_momentum(feat, cells, c, mv=mv2, acc=acc)       # with_acc
+    crm.crm_momentum(feat, cells, c, acc=acc2)              # forces_only
+    require(torch.equal(mv, mv2) and torch.equal(acc, acc2),
+            f"{what}: crm_momentum's modes disagree")
+    ref_out = crm.crm_gradv_stress_plain(feat, ref_mv, cells, c)
+    crm.crm_gradv_stress(feat, ref_mv, cells, c, out)
+    m, g = f"{what} crm_momentum", f"{what} crm_gradv_stress"
+    errs = {
+        "crm_momentum": {
+            "v": crm_scaled_close(mv[0:3], ref_mv[0:3], 1e-4, 3e-5,
+                                  f"{m} v"),
+            "1/rho": check_close(mv[3], ref_mv[3], **CRM_INV_TOL,
+                                 what=f"{m} 1/rho"),
+            "acc": crm_scaled_close(acc, ref_acc, 1e-4, 5e-5, f"{m} acc")},
+        "crm_gradv_stress": crm_state_errs(out, ref_out, g)}
+    still = (feat[crm.INT] < 0.5) | (feat[crm.VAL] < 0.5)
+    require(torch.equal(out[crm.PX:crm.VZ + 1, still],
+                        feat[crm.PX:crm.VZ + 1, still])
+            and torch.equal(out[crm.SXX:crm.SYZ + 1, still],
+                            feat[crm.SXX:crm.SYZ + 1, still]),
+            f"{what}: a marker that is not integrated moved")
+    return errs, (ref_mv, ref_acc, ref_out)
+
+
+def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True):
+    """``crm_outer`` (n_sub substeps in one launch) against n_sub substeps
+    of the per-sweep kernels (with_acc on the last) and, with ``twin``,
+    against its twin.  Returns the errors by reference and plane."""
+    n = feat.shape[1]
+    out, acc = feat.new_empty((crm.N_STATE, n)), feat.new_empty((3, n))
+    crm.crm_outer_substeps(feat, cells, c, n_sub, out, acc)
+    mv, ref_acc = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n))
+    cur = feat
+    for s in range(n_sub):
+        nxt = torch.empty_like(feat)
+        crm.crm_substep(cur, cells, c, mv, nxt,
+                        ref_acc if s == n_sub - 1 else None)
+        cur = nxt
+    refs = {"per-sweep kernels": (cur, ref_acc)}
+    if twin:
+        refs["twin"] = crm.crm_outer_substeps_plain(feat, cells, c, n_sub)
+    errs = {}
+    for name, (ref, r_acc) in refs.items():
+        w = f"{what} crm_outer vs {name}"
+        errs[name] = crm_state_errs(out, ref, w)
+        errs[name]["acc"] = crm_scaled_close(acc, r_acc, 1e-4, 5e-5,
+                                             f"{w} acc")
+    return errs
+
+
+def crm_one_substep():
+    """The sweeps against their twins, and the whole-outer kernel (4
+    substeps) against the per-sweep kernels and its twin, on the stirred
+    mini bed."""
+    params, soil, grid, state = crm_stirred_mini()
+    c = crm.crm_static_params(params, soil)
+    eng = make_crm_engine(params, soil, grid, 32, device=DEV)
+    feat, _, cells, ovf = eng["bin"](state)
+    require(int(ovf) == 0, "the mini bed overflows its cells")
+    errs = crm_sweeps_vs_twins(feat, cells, c, "mini bed")[0]
+    return errs, crm_outer_vs_sweeps(feat, cells, c, 4, "mini bed")
+
+
+def crm_three_cycles():
+    """The whole path for 3 cycles of 4 substeps from the lithostatic mini
+    bed, on the card vs on the CPU (twins).  The edge markers start inside
+    the wall penalty range and are kicked to ~3 m/s, so sum-order
+    differences grow over the 12 substeps: held at the tolerances
+    tests/test_torch_crm.py holds 3 cycles to (x atol 1e-6 m, v
+    1e-3·max|v|, ρ 0.05, σ 1e-3·max|σ|).  Returns the max abs error over
+    x, v, ρ and σ."""
+    params, soil, grid, state = crm_bed((0.4, 0.2), 0.1, 0.02)
+    (card, ovf_c), (plain, ovf_p) = (
+        make_crm_advance_pencil(params, soil, grid, 32, device=dev)(state, 3)
+        for dev in (DEV, torch.device("cpu")))
+    require(int(ovf_c) == 0 and int(ovf_p) == 0, "mini bed overflow")
+    return max(
+        assert_close(card.pos, plain.pos, 1e-6, 1e-6, "3 cycles x"),
+        crm_scaled_close(card.vel, plain.vel, 1e-4, 1e-3, "3 cycles v")[0],
+        assert_close(card.rho, plain.rho, 2e-5, 0.05, "3 cycles rho"),
+        *(crm_scaled_close(getattr(card, f), getattr(plain, f), 1e-4, 1e-3,
+                           f"3 cycles {f}")[0] for f in ("tau_d", "tau_o")))
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def dp_cone_excess(tau_d, tau_o, soil):
+    """Per marker, how far √J₂ lies beyond the Drucker–Prager limit
+    α·max(p, apex) + k, less an fp32 rounding slack of 1e-5·(|p| + √J₂ + k)
+    (≤ 0 inside), and the share of markers on the cone (√J₂ within 0.1 % of
+    the limit)."""
+    s = torch.cat([tau_d, tau_o], dim=1).double()
+    den = np.sqrt(9.0 + 3.0 * soil.friction_angle ** 2)
+    alpha, k_c = soil.friction_angle / den, 3.0 * soil.cohesion / den
+    p = -(s[:, 0] + s[:, 1] + s[:, 2]) / 3.0
+    e = s[:, 0:3] + p[:, None]
+    sqrt_j2 = torch.sqrt(0.5 * (e * e).sum(1) + (s[:, 3:] ** 2).sum(1))
+    limit = alpha * torch.clamp(p, min=-k_c / alpha) + k_c
+    excess = sqrt_j2 - limit - 1e-5 * (p.abs() + sqrt_j2 + k_c)
+    return excess, float((sqrt_j2 >= 0.999 * limit).double().mean())
+
+
+def crm_pair_counts(feat, cells, h):
+    """The unordered pairs inside the support 2h with at least one
+    integrated marker: the pairs whose terms the sweeps' function needs,
+    each evaluated once for both sides by the TPU's symmetric form."""
+    n = feat.shape[1]
+    integ = feat[crm.INT] > 0.5
+    both = mixed = 0
+    step = max(1, (1 << 24) // (27 * cells.capacity))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        j, ok, live = sph.neighbour_candidates(cells, lo, hi)
+        d = feat[0:3, lo:hi, None] - feat[0:3][:, j]
+        r = torch.sqrt((d * d).sum(0) + 1e-12)
+        inside = ok & (r / h < 2.0) & live[:, None]
+        fi = integ[lo:hi, None]
+        both += int((inside & fi & integ[j]).sum())
+        mixed += int((inside & fi & ~integ[j]).sum())
+    return both // 2 + mixed
+
+
+# the TPU kernels each port replaces: sweeps M and G of crm_substep_sym
+# (crm_sym_kernel.py:237; the SWEEP calls reach pl.pallas_call through
+# _sym_sweep or sym_sweep_flat), and crm_outer_substeps
+CRM_REPLACES = {
+    "crm_momentum": "chrono_tpu/ops/pallas/crm_sym_kernel.py:280",
+    "crm_gradv_stress": "chrono_tpu/ops/pallas/crm_sym_kernel.py:286",
+    "crm_outer": "chrono_tpu/ops/pallas/crm_outer_kernel.py:173"}
+CRM_SOURCES = {"crm_momentum": "chrono_tpu_torch/csrc/crm_substep.cu",
+               "crm_gradv_stress": "chrono_tpu_torch/csrc/crm_substep.cu",
+               "crm_outer": "chrono_tpu_torch/csrc/crm_outer.cu"}
+# float32 operations per unordered in-support pair, at the TPU symmetric
+# form's count (crm_sym_kernel.py:278, :287 flops_per_pair)
+CRM_OPS_PER_PAIR = {"crm_momentum": 90, "crm_gradv_stress": 60}
+CRM_SWEEPS = ("crm_momentum", "crm_gradv_stress")
+
+
+def crm_cycles(run, state, n_cycles):
+    """``run(state, n) → (state, overflow)`` for 1 warm-up cycle and then
+    ``n_cycles`` timed ones: ``(state, overflow, wall seconds)``."""
+    st, ovf = run(state, 1)
+    require(int(ovf) == 0, f"warm-up overflow {int(ovf)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = run(st, n_cycles)
+    torch.cuda.synchronize()
+    return st, ovf, time.perf_counter() - t0
+
+
+def crm_check_run(st, state, soil, ovf, what):
+    """Overflow 0, finite, walls unmoved bit for bit, every granular stress
+    inside the cone.  Returns the share of granular markers on the cone."""
+    gran = state.kind == FLUID
+    require(int(ovf) == 0, f"{what}: overflow {int(ovf)}")
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (st.pos, st.vel, st.rho, st.tau_d, st.tau_o)),
+            f"{what}: non-finite state")
+    require(torch.equal(st.pos[~gran], state.pos[~gran])
+            and torch.equal(st.vel[~gran], state.vel[~gran]),
+            f"{what}: a wall marker moved")
+    excess, on_cone = dp_cone_excess(st.tau_d[gran], st.tau_o[gran], soil)
+    require(float(excess.max()) <= 0.0,
+            f"{what}: {int((excess > 0).sum())} granular stresses outside "
+            f"the Drucker-Prager cone (max excess {float(excess.max())} Pa)")
+    return on_cone
+
+
+def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
+    params, soil, grid, state = crm_bed(size, depth, d0)
+    n = state.n
+    gran = state.kind == FLUID
+    n_g = int(gran.sum())
+    steps = params.rebuild_every
+    top = int(bin_to_cells(grid, C, state.pos)[1].count.max())
+    print(f"CRM main path: {size[0]} x {size[1]} x {depth} m bed at d0 "
+          f"{d0}: {n} markers ({n_g} granular, {n - n_g} wall), grid "
+          f"{grid.dims} ({grid.n_cells} cells of {grid.cell_size:.6f} m), "
+          f"C={C}, largest cell {top}, rebuild_every {steps}, dt {params.dt}")
+
+    # the main path: make_crm_advance_pencil, two sweep launches a substep
+    adv = make_crm_advance_pencil(params, soil, grid, capacity=C, device=DEV)
+    for name in CRM_SWEEPS:
+        getattr(crm, name).launches = 0
+    crm.crm_outer_substeps.launches = 0
+    st, ovf, wall = crm_cycles(adv, state, 2)
+    launches = {name: getattr(crm, name).launches for name in CRM_SWEEPS}
+    launches["crm_outer"] = crm.crm_outer_substeps.launches
+    require(launches == {"crm_momentum": 3 * steps,
+                         "crm_gradv_stress": 3 * steps, "crm_outer": 0},
+            f"launch counts {launches}")
+    on_cone = crm_check_run(st, state, soil, ovf, "CRM main path")
+    vmax = float(st.vel[gran].norm(dim=1).max())
+    print(f"CRM main path: ovf 0, launches {launches}, finite, walls "
+          f"unmoved, every granular stress inside the cone ({on_cone:.4f} "
+          f"on it), max |v| {vmax:.6e} m/s")
+    print(f"CRM main path: {2 * steps} substeps of {n_g} granular markers "
+          f"in {wall:.4f} s = {n_g * 2 * steps / wall:.6e} marker-steps/s "
+          f"(bin, {2 * steps} substeps of 2 sweeps, unbin; host clock) on "
+          f"{card}")
+
+    # the whole-outer path: bin, one crm_outer launch per cycle, unbin
+    eng = make_crm_engine(params, soil, grid, C, device=DEV)
+
+    def outer_advance(s, n_cycles):
+        ovf = torch.zeros((), dtype=torch.int32, device=DEV)
+        for _ in range(n_cycles):
+            feat, order, cells, o = eng["bin"](s)
+            out, _ = eng["outer"](feat, cells, steps)
+            s = cells_to_crm_state(out, order, s)
+            s = s.replace(time=s.time + params.dt * steps)
+            ovf = torch.maximum(ovf, o)
+        return s, ovf
+
+    for name in CRM_SWEEPS:
+        getattr(crm, name).launches = 0
+    crm.crm_outer_substeps.launches = 0
+    so, ovf, wall_o = crm_cycles(outer_advance, state, 2)
+    launches_o = {name: getattr(crm, name).launches for name in CRM_SWEEPS}
+    launches_o["crm_outer"] = crm.crm_outer_substeps.launches
+    require(launches_o == {"crm_momentum": 0, "crm_gradv_stress": 0,
+                           "crm_outer": 3}, f"launch counts {launches_o}")
+    crm_check_run(so, state, soil, ovf, "CRM whole-outer path")
+    outer_vs_sweeps = max(
+        assert_close(so.pos, st.pos, 1e-6, 1e-7, "outer path x"),
+        crm_scaled_close(so.vel, st.vel, 1e-4, 3e-5, "outer path v")[0],
+        assert_close(so.rho, st.rho, **CRM_RHO_TOL, what="outer path rho"),
+        *(crm_scaled_close(getattr(so, f), getattr(st, f), 1e-4, 2e-4,
+                           f"outer path {f}")[0] for f in ("tau_d", "tau_o")))
+    print(f"CRM whole-outer path: launches {launches_o}, {2 * steps} "
+          f"substeps in {wall_o:.4f} s = {n_g * 2 * steps / wall_o:.6e} "
+          f"marker-steps/s; against the per-sweep path after 3 cycles max "
+          f"abs err {outer_vs_sweeps:.3e}")
+
+    # each kernel against its twin at the main path's shapes
+    c = eng["consts"]
+    feat, _, cells, _ = eng["bin"](st)
+    errs, (ref_mv, _, _) = crm_sweeps_vs_twins(feat, cells, c, "bed at 1M")
+    outer_errs = crm_outer_vs_sweeps(feat, cells, c, steps, "bed at 1M")
+    errs["crm_outer"] = outer_errs["twin"]
+    print(f"CRM sweeps vs twins at 1M, max abs err per plane: "
+          f"{format_errs(errs)}")
+    print(f"crm_outer vs {steps} x (M, G) per-sweep kernels at 1M: "
+          f"{format_errs({'crm_outer': outer_errs['per-sweep kernels']})}")
+    bufs = {k: feat.new_empty((r, n)) for k, r in
+            (("mv", crm.N_MV), ("g", crm.N_STATE), ("o", crm.N_STATE),
+             ("a", 3))}
+    calls = {
+        "crm_momentum": (
+            lambda: crm.crm_momentum(feat, cells, c, mv=bufs["mv"]),
+            lambda: crm.crm_momentum_plain(feat, cells, c), 2),
+        "crm_gradv_stress": (
+            lambda: crm.crm_gradv_stress(feat, ref_mv, cells, c, bufs["g"]),
+            lambda: crm.crm_gradv_stress_plain(feat, ref_mv, cells, c), 2),
+        "crm_outer": (
+            lambda: crm.crm_outer_substeps(feat, cells, c, steps, bufs["o"],
+                                           bufs["a"]),
+            lambda: crm.crm_outer_substeps_plain(feat, cells, c, steps), 1),
+    }
+    pairs = crm_pair_counts(feat, cells, params.h)
+    table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
+    n_bytes = {"crm_momentum": (crm.N_STATE + crm.N_MV) * n * 4 + table,
+               "crm_gradv_stress": (2 * crm.N_STATE + crm.N_MV) * n * 4
+               + table,
+               "crm_outer": (2 * crm.N_STATE + 3) * n * 4 + table}
+    n_ops = {"crm_momentum": pairs * CRM_OPS_PER_PAIR["crm_momentum"],
+             "crm_gradv_stress": pairs * CRM_OPS_PER_PAIR["crm_gradv_stress"],
+             "crm_outer": steps * pairs * sum(CRM_OPS_PER_PAIR.values())}
+    all_launches = dict(launches, crm_outer=launches_o["crm_outer"])
+    rows = []
+    for name in ("crm_momentum", "crm_gradv_stress", "crm_outer"):
+        kernel, plain, plain_reps = calls[name]
+        ms = cuda_ms(kernel, 20 if name != "crm_outer" else 5)
+        plain_ms = cuda_ms(plain, plain_reps)
+        bms, by = bound(n_bytes[name], n_ops[name])
+        plane = max(errs[name], key=lambda p: errs[name][p][0])
+        err = errs[name][plane][0]
+        over_tol = max(r for _, r in errs[name].values())
+        print(f"{name} at 1M: max abs err {err:.3e} ({plane} plane), "
+              f"{over_tol:.3f} of its tolerance, {ms:.4f} ms (plain twin "
+              f"{plain_ms:.4f} ms), {pairs} pairs, bound {bms:.4f} ms by "
+              f"{by}")
+        rows.append({
+            "name": name, "route": "cuda", "source": CRM_SOURCES[name],
+            "replaces": CRM_REPLACES[name],
+            "launches": all_launches[name], "max_abs_err": err,
+            "max_abs_err_plane": plane, "err_over_tol": over_tol,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None})
+
+    # launch overhead: one crm_outer against 8 per-sweep launches on the
+    # demo-sized bed (demos/demo_vehicle_crm.py:83-84 at its d0 = 0.05)
+    params, soil, grid, state = crm_bed((2.0, 1.2), 0.15, 0.05)
+    eng = make_crm_engine(params, soil, grid, C, device=DEV)
+    feat, _, cells, ovf = eng["bin"](state)
+    require(int(ovf) == 0, "the demo bed overflows its cells")
+    c = eng["consts"]
+    demo_errs = crm_outer_vs_sweeps(feat, cells, c, steps, "demo bed",
+                                    twin=False)
+    out, acc = torch.empty_like(feat), feat.new_empty((3, feat.shape[1]))
+    spare, mv = torch.empty_like(feat), feat.new_empty((crm.N_MV,
+                                                        feat.shape[1]))
+
+    def per_sweep():
+        cur, nxt = feat, out
+        for s in range(steps):
+            crm.crm_substep(cur, cells, c, mv, nxt,
+                            acc if s == steps - 1 else None)
+            cur, nxt = nxt, (spare if nxt is out else out)
+
+    outer_ms = cuda_ms(lambda: crm.crm_outer_substeps(
+        feat, cells, c, steps, out, acc), 50)
+    sweeps_ms = cuda_ms(per_sweep, 50)
+    outer_ms2 = cuda_ms(lambda: crm.crm_outer_substeps(
+        feat, cells, c, steps, out, acc), 50)
+    print(f"demo bed (2.0 x 1.2 x 0.15 m, d0 0.05, {state.n} markers, "
+          f"{int((state.kind == FLUID).sum())} granular): crm_outer "
+          f"{outer_ms:.4f} / {outer_ms2:.4f} ms vs {2 * steps} per-sweep "
+          f"launches {sweeps_ms:.4f} ms; outer vs per-sweep: "
+          f"{format_errs(demo_errs)}")
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -773,6 +1220,22 @@ def main():
     t0 = time.perf_counter()
     kernels += sph_main_path(card, args.profile)
     print(f"phase 4 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 5: CRM parity on the card
+    t0 = time.perf_counter()
+    errs, outer_errs = crm_one_substep()
+    print(f"CRM sweeps vs twins, mini bed, 1 substep: {format_errs(errs)}")
+    for name, e in outer_errs.items():
+        print(f"crm_outer (4 substeps) vs {name}, mini bed: "
+              f"{format_errs({'crm_outer': e})}")
+    print(f"CRM path vs twins, mini bed, 3 cycles x 4 substeps: max abs err "
+          f"{crm_three_cycles():.3e}")
+    print(f"phase 5 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 6: CRM terrain at full width
+    t0 = time.perf_counter()
+    kernels += crm_main_path(card)
+    print(f"phase 6 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,5 +11,7 @@ Ported so far: the granular DEM settling box (``dem.cell_dense.
 make_cell_dense_advance``), with its two kernels ``ops.cuda.dem_substep`` and
 ``ops.cuda.migrate``; the WCSPH dam break (``fsi.sph.pencil.
 make_sph_advance_pencil``), with the three sweeps of
-``ops.cuda.sph_substep``.
+``ops.cuda.sph_substep``; CRM terrain alone (``fsi.crm_terrain.
+make_crm_terrain_state``, ``fsi.sph.crm_pencil.make_crm_advance_pencil``),
+with the two sweeps and the whole-outer step of ``ops.cuda.crm_substep``.
 """

@@ -1,10 +1,11 @@
 """Build the port's parameter objects from the JAX package's leaves.
 
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``PlaneBCs`` /
-``GridSpec`` / ``SPHParams`` / ``SPHState`` as pytrees of arrays and static
-fields.  A caller that holds them flattens each into a mapping of field
-name → numpy array or Python scalar (nested mappings for the two
-materials); these functions turn such mappings into the port's objects.
+``GridSpec`` / ``SPHParams`` / ``SPHState`` / ``CRMParams`` / ``CRMState``
+as pytrees of arrays and static fields.  A caller that holds them flattens
+each into a mapping of field name → numpy array or Python scalar (nested
+mappings for the two materials); these functions turn such mappings into
+the port's objects.
 So this package never sees JAX.
 """
 
@@ -18,6 +19,7 @@ import torch
 from chrono_tpu_torch.collision.cell_list import GridSpec
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 
 
@@ -93,3 +95,25 @@ def sph_state_from_numpy(leaves: Mapping[str, Any], *, device) -> SPHState:
                     body_id=t("body_id", torch.int32),
                     bce_local=t("bce_local", torch.float32),
                     time=t("time", torch.float32))
+
+
+def crm_params_from_numpy(leaves: Mapping[str, Any]) -> CRMParams:
+    """``CRMParams`` from the JAX ``CRMParams`` fields.  Dilatancy is read
+    by nothing (the return is non-associated) and a non-zero one is
+    refused."""
+    if _scalar(leaves.get("dilatancy", 0.0)) != 0.0:
+        raise NotImplementedError("dilatancy (tan ψ ≠ 0) is not ported")
+    return CRMParams(**{f: _scalar(leaves[f]) for f in (
+        "youngs", "poisson", "friction_angle", "cohesion") if f in leaves})
+
+
+def crm_state_from_numpy(leaves: Mapping[str, Any], *, device) -> CRMState:
+    """``CRMState`` on ``device`` from the JAX ``CRMState`` fields (its
+    neighbour list, if given, is not carried over)."""
+    def t(name, dtype):
+        return torch.as_tensor(np.array(leaves[name]), dtype=dtype,
+                               device=device)
+
+    return CRMState(**{f: t(f, torch.float32) for f in (
+        "pos", "vel", "rho", "bce_local", "tau_d", "tau_o", "time")},
+        kind=t("kind", torch.int32), body_id=t("body_id", torch.int32))

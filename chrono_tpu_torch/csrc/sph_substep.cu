@@ -15,7 +15,8 @@
 // are copied through.
 //
 // Each thread walks the 27 neighbour cells (edge cells skipped) in a fixed
-// order and sums every pair onto its own marker only: no atomics, and a
+// order (for_pairs, cell_pairs.cuh, which the CRM sweeps share) and sums
+// every pair onto its own marker only: no atomics, and a
 // deterministic sum.  A pair beyond the kernel support 2h adds exact zeros
 // in the plain twin, so it is skipped (first on r^2 with a safe margin, then
 // on q = r/h >= 2 exactly as the twin's branches).  A sweep's pair loop runs
@@ -37,6 +38,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cell_pairs.cuh"
+
 struct SphConsts {
   float h, sigma, m, rho0, c_s, gamma, B, dhc, alpha_visc, mu, xsph_eps, dt;
   float g[3];
@@ -48,26 +51,6 @@ namespace {
 enum { PX, PY, PZ, VX, VY, VZ, RHO, FLU, PRS, IRHO, kState };
 enum { A_P, A_VBX, A_VBY, A_VBZ, A_RHO, A_PR2, A_IRHO, kAdami };
 
-struct Cells {
-  const int* cell;
-  const int* start;
-  const int* count;
-  int nx, ny, nz, cap;
-};
-
-// Cubic spline W and dW/dr at q = r/h, zero for q >= 2 (kernels.py).
-__device__ __forceinline__ float cubic_w(float q, const SphConsts& k) {
-  if (q < 1.0f) return k.sigma * (1.0f - 1.5f * q * q + 0.75f * q * q * q);
-  const float t = 2.0f - q;
-  return k.sigma * (0.25f * t * t * t);
-}
-
-__device__ __forceinline__ float cubic_dwdr(float q, const SphConsts& k) {
-  if (q < 1.0f) return k.sigma / k.h * (-3.0f * q + 2.25f * q * q);
-  const float t = 2.0f - q;
-  return k.sigma / k.h * (-0.75f * t * t);
-}
-
 __device__ __forceinline__ float tait_p(float rho, const SphConsts& k) {
   return k.B * (powf(rho / k.rho0, k.gamma) - 1.0f);
 }
@@ -77,51 +60,6 @@ __device__ __forceinline__ float tait_p(float rho, const SphConsts& k) {
 // which differs only where p/B < -0.9.
 __device__ __forceinline__ float tait_rho(float p, const SphConsts& k) {
   return k.rho0 * powf(fmaxf(1.0f + p / k.B, 0.1f), 1.0f / k.gamma);
-}
-
-// Calls pair(j, d, r2, r, q) for every marker j != i of the 27 neighbour
-// cells that lies inside the support (q < 2), in a fixed order.
-template <class Pair>
-__device__ __forceinline__ void for_pairs(const float* __restrict__ st,
-                                          int n, const Cells& c, int i,
-                                          const float xi[3],
-                                          const SphConsts& k, Pair&& pair) {
-  const int cell = c.cell[i];
-  const int ck = cell % c.nz;
-  const int cj = (cell / c.nz) % c.ny;
-  const int ci = cell / (c.nz * c.ny);
-  // q >= 2 for certain beyond this r^2 (margin over rounding)
-  const float r2_cut = 4.0004f * k.h * k.h;
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int ii = ci + dx;
-    if (ii < 0 || ii >= c.nx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int jj = cj + dy;
-      if (jj < 0 || jj >= c.ny) continue;
-      for (int dz = -1; dz <= 1; ++dz) {
-        const int kk = ck + dz;
-        if (kk < 0 || kk >= c.nz) continue;
-        const int nc = (ii * c.ny + jj) * c.nz + kk;
-        const int s = c.start[nc];
-        const int e = s + min(c.count[nc], c.cap);
-        for (int j = s; j < e; ++j) {
-          if (j == i) continue;
-          const float d[3] = {xi[0] - st[PX * n + j], xi[1] - st[PY * n + j],
-                              xi[2] - st[PZ * n + j]};
-          const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-          if (r2 > r2_cut) continue;
-          const float r = sqrtf(r2 + 1e-12f);
-          const float q = r / k.h;
-          if (q >= 2.0f) continue;
-          pair(j, d, r2, r, q);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ bool live(const Cells& c, int i) {
-  return i - c.start[c.cell[i]] < c.cap;
 }
 
 // ---- sweep A: Adami wall BC (sph_pencil_kernel.py:222-258) ----
@@ -137,10 +75,10 @@ sph_adami_kernel(const float* __restrict__ st, Cells c,
   if (flu < 0.5f && live(c, i)) {
     const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
     float swp = 0.0f, sw = 0.0f, swv[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st, n, c, i, xi, k,
+    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
               [&](int j, const float* d, float, float, float q) {
                 if (st[FLU * n + j] < 0.5f) return;   // fluid neighbours
-                const float w = cubic_w(q, k);
+                const float w = cubic_w(q, k.sigma);
                 // hydrostatic term (g . (x_i - x_j)) rho_j for fixed walls
                 const float hydro =
                     (k.g[0] * d[0] + k.g[1] * d[1] + k.g[2] * d[2]) *
@@ -181,9 +119,10 @@ sph_momentum_kernel(const float* __restrict__ st,
     const float irho_i = ad[A_IRHO * n + i];
     const float eps_h2 = 0.01f * k.h * k.h;
     float acc[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st, n, c, i, xi, k,
+    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
               [&](int j, const float* d, float r2, float r, float q) {
-                const float gf = cubic_dwdr(q, k) / fmaxf(r, 1e-12f);
+                const float gf =
+                    cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
                 const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
                 // viscous velocity: the ghost velocity of a solid neighbour
                 const float vij[3] = {v[0] - ad[A_VBX * n + j],
@@ -229,9 +168,10 @@ sph_continuity_drift_kernel(const float* __restrict__ st,
   float x1[3] = {xi[0], xi[1], xi[2]};
   if (flu > 0.5f && live(c, i)) {
     float drho = 0.0f, diff = 0.0f, corr[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st, n, c, i, xi, k,
+    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
               [&](int j, const float* d, float r2, float r, float q) {
-                const float gf = cubic_dwdr(q, k) / fmaxf(r, 1e-12f);
+                const float gf =
+                    cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
                 const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
                 const float vj[3] = {vel[j], vel[n + j], vel[2 * n + j]};
                 drho += k.m * ((v1[0] - vj[0]) * gw[0] +
@@ -244,7 +184,7 @@ sph_continuity_drift_kernel(const float* __restrict__ st,
                                     d[2] * gw[2]) / (r2 + 1e-12f);
                 diff += k.m * st[IRHO * n + j] * psi;
                 const float wx = k.m / fmaxf(0.5f * (rho_i + rho_j), 1e-9f) *
-                                 cubic_w(q, k);
+                                 cubic_w(q, k.sigma);
                 for (int a = 0; a < 3; ++a) corr[a] += wx * (vj[a] - v1[a]);
               });
     rho = rho_i + k.dt * (drho + k.dhc * diff);

@@ -2,8 +2,8 @@
 
 Each source has a plain C interface, so it compiles without PyTorch's
 headers in seconds.  The shared library goes to ``chrono_tpu_torch/_build/``
-(git-ignored) at first use and is rebuilt when its source is newer.  Nothing
-here runs at import time.
+(git-ignored) at first use and is rebuilt when its source, or a header it
+may include (``csrc/*.cuh``), is newer.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -30,14 +30,18 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     lib = BUILD_DIR / f"lib{name}.so"
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names) -> None:
     """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so`` for each name
-    whose library is missing or older than its source, one nvcc process per
+    whose library is missing or stale (:func:`_stale`), one nvcc process per
     source, all started together; the compiler's output (ptxas register and
     spill counts) goes to ``_build/<name>.log``."""
     stale = [name for name in names if _stale(name)]

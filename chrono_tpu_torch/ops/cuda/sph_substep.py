@@ -146,11 +146,18 @@ def neighbour_candidates(cells: SortedCells, lo: int, hi: int):
     with j (b, 27·C) int64 (the marker itself where not ok), ok (b, 27·C)
     bool, and live (b,) bool, false for a marker past its cell's
     capacity."""
+    return candidates_of(cells, torch.arange(lo, hi,
+                                             device=cells.cell.device))
+
+
+def candidates_of(cells: SortedCells, i: torch.Tensor):
+    """:func:`neighbour_candidates` of the sorted markers ``i`` (b,)
+    int64."""
     dev = cells.cell.device
     nx, ny, nz = cells.dims
     C = cells.capacity
-    i = torch.arange(lo, hi, device=dev)
-    cid = cells.cell[lo:hi].long()
+    b = i.shape[0]
+    cid = cells.cell[i].long()
     ijk = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], 1)
     nb = ijk[:, None, :] + torch.tensor(_OFFSETS, device=dev)   # (b, 27, 3)
     hi_ijk = torch.tensor([nx, ny, nz], device=dev)
@@ -162,9 +169,9 @@ def neighbour_candidates(cells: SortedCells, lo: int, hi: int):
     k = torch.arange(C, device=dev)
     j = st[..., None] + k                                       # (b, 27, C)
     ok = (k < cnt[..., None]) & (j != i[:, None, None])
-    j = torch.where(ok, j, i[:, None, None]).reshape(hi - lo, -1)
+    j = torch.where(ok, j, i[:, None, None]).reshape(b, -1)
     live = (i - cells.start.long()[cid]) < C
-    return j, ok.reshape(hi - lo, -1), live
+    return j, ok.reshape(b, -1), live
 
 
 def _chunks(cells: SortedCells):
@@ -324,7 +331,8 @@ def _launcher(name: str):
     return fn
 
 
-def _check(name, t, rows, n, device):
+def check_planes(name, t, rows, n, device):
+    """Raise unless ``t`` is a contiguous float32 (rows, n) on device."""
     if t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous float32")
     if tuple(t.shape) != (rows, n):
@@ -334,27 +342,41 @@ def _check(name, t, rows, n, device):
         raise ValueError(f"{name} must be on {device}")
 
 
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the bytes of two contiguous tensors overlap."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def check_cells(cells: SortedCells, device, n_state: int):
+    """Raise unless the cell table is contiguous int32 of the right sizes
+    on ``device`` and the kernels can index ``n_state`` planes of it."""
+    n = cells.cell.shape[0]
+    n_cells = cells.dims[0] * cells.dims[1] * cells.dims[2]
+    for label, t, size in (("cell", cells.cell, n),
+                           ("start", cells.start, n_cells),
+                           ("count", cells.count, n_cells)):
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.numel() != size or t.device != device):
+            raise ValueError(f"cells.{label} must be contiguous int32 of "
+                             f"{size} on {device}")
+    if n == 0 or n_state * n >= 2 ** 31 or cells.capacity < 1:
+        raise ValueError(f"{n} markers is outside the kernels' range")
+
+
 def _launch(name, inputs, cells: SortedCells, out, out_rows,
             c: SPHConsts):
     """Check ``inputs`` (label, tensor, rows) and ``out`` and launch."""
     n = cells.cell.shape[0]
     dev = inputs[0][1].device
     for label, t, rows in inputs:
-        _check(label, t, rows, n, dev)
-    _check("out", out, out_rows, n, dev)
+        check_planes(label, t, rows, n, dev)
+    check_planes("out", out, out_rows, n, dev)
     for label, t, _ in inputs:
-        if t.data_ptr() == out.data_ptr():
+        if overlaps(t, out):
             raise ValueError(f"{name} runs out of place ({label} is out)")
-    n_cells = cells.dims[0] * cells.dims[1] * cells.dims[2]
-    for label, t, size in (("cell", cells.cell, n),
-                           ("start", cells.start, n_cells),
-                           ("count", cells.count, n_cells)):
-        if (t.dtype != torch.int32 or not t.is_contiguous()
-                or t.numel() != size or t.device != dev):
-            raise ValueError(f"cells.{label} must be contiguous int32 of "
-                             f"{size} on {dev}")
-    if n == 0 or N_STATE * n >= 2 ** 31 or cells.capacity < 1:
-        raise ValueError(f"{n} markers is outside the kernels' range")
+    check_cells(cells, dev, N_STATE)
     err = _launcher(name)(
         *(t.data_ptr() for _, t, _ in inputs), cells.cell.data_ptr(),
         cells.start.data_ptr(), cells.count.data_ptr(), out.data_ptr(), n,

@@ -21,11 +21,13 @@ import chrono_tpu_torch
 from chrono_tpu_torch.dem.cell_dense import substep_coefs, to_cells
 from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.ops.cuda import _build
+from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import dem_substep
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
 
 SPH_SWEEPS = ("sph_adami", "sph_momentum", "sph_continuity_drift")
+CRM_KERNELS = ("crm_momentum", "crm_gradv_stress", "crm_outer_substeps")
 
 
 @pytest.fixture
@@ -52,7 +54,10 @@ def test_package_imports_without_building(monkeypatch):
         cwd=Path(chrono_tpu_torch.__file__).parents[1])
     assert probe.stdout.strip() == "[]"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "dem_substep.cu", "migrate.cu", "sph_substep.cu"}
+        "dem_substep.cu", "migrate.cu", "sph_substep.cu", "crm_substep.cu",
+        "crm_outer.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
+        "cell_pairs.cuh", "crm_sweeps.cuh"}
 
     def no_build(name):
         raise AssertionError(f"built {name} for a CPU tensor")
@@ -177,6 +182,16 @@ def test_sph_wrappers_raise_on_other_devices():
                                  mcells, c, torch.empty_like(meta))
 
 
+def test_overlaps_compares_byte_ranges():
+    """The wrappers' out-of-place guard sees views that overlap from
+    different starts, and lets adjacent ones pass."""
+    buf = torch.empty((4, 10))
+    assert sph.overlaps(buf, buf[1:4]) and sph.overlaps(buf[1:4], buf)
+    assert sph.overlaps(buf[0:2], buf[1:3])
+    assert not sph.overlaps(buf[0:2], buf[2:4])
+    assert not sph.overlaps(buf, torch.empty_like(buf))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("viscosity", ["artificial", "laminar"])
 def test_sph_kernels_match_twins(card, viscosity):
@@ -228,3 +243,146 @@ def test_sph_kernels_match_twins_past_capacity(card):
     past = torch.arange(feat.shape[1], device="cuda") - start >= top - 4
     assert bool(past.any())
     assert torch.equal(ref[0:7, past], feat[0:7, past])
+
+
+def test_build_is_stale_when_a_shared_header_changes(tmp_path, monkeypatch):
+    """A library older than its source or than any ``csrc/*.cuh`` is
+    rebuilt; one newer than both is not."""
+    import os
+
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, hdr, lib = csrc / "k.cu", csrc / "shared.cuh", build / "libk.so"
+    assert _build._stale("k")
+    for path, t in ((src, 100), (hdr, 100), (lib, 200)):
+        path.write_text("")
+        os.utime(path, (t, t))
+    assert not _build._stale("k")
+    os.utime(hdr, (300, 300))
+    assert _build._stale("k")
+    os.utime(hdr, (100, 100))
+    os.utime(src, (300, 300))
+    assert _build._stale("k")
+
+
+def _crm_launches():
+    return tuple(getattr(crm, name).launches for name in CRM_KERNELS)
+
+
+def _crm_mini_engine(device):
+    from chip_smoke import crm_bed
+    from chrono_tpu_torch.fsi.sph.crm_pencil import make_crm_engine
+    params, soil, grid, state = crm_bed((0.4, 0.2), 0.1, 0.02, device=device)
+    eng = make_crm_engine(params, soil, grid, 32, device=device)
+    feat, _, cells, _ = eng["bin"](state)
+    return eng, feat, cells
+
+
+def _crm_mini_cells(device):
+    eng, feat, cells = _crm_mini_engine(device)
+    return feat, cells, eng["consts"]
+
+
+def test_crm_twins_run_on_cpu_without_building(monkeypatch):
+    """CPU tensors run the CRM twins through the engine's entries: no
+    build, no launch counted; the two sweeps compose into
+    crm_substep_plain, the forces-only sweep gives with_acc's
+    acceleration, and a one-substep outer step is the per-sweep twins."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    eng, feat, cells = _crm_mini_engine("cpu")
+    c = eng["consts"]
+    before = _crm_launches()
+    out, acc = eng["substep_acc"](feat, cells)
+    acc2 = eng["forces"](feat, cells)
+    o2, a2 = eng["outer"](feat, cells, 1)
+    assert _crm_launches() == before
+    ref, ref_acc = crm.crm_substep_plain(feat, cells, c, with_acc=True)
+    assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
+    assert torch.equal(eng["substep"](feat, cells), out)
+    assert torch.equal(acc2, acc) and torch.equal(o2, out)
+    assert torch.equal(a2, acc)
+    walls = feat[crm.INT] < 0.5
+    assert torch.equal(out[0:crm.SYZ + 1, walls], feat[0:crm.SYZ + 1, walls])
+    assert bool((out[0:3, ~walls] != feat[0:3, ~walls]).any())
+    assert bool((acc[:, walls] != 0).any())
+
+
+def test_crm_wrappers_raise_on_other_devices():
+    feat, cells, c = _crm_mini_cells("cpu")
+    n = feat.shape[1]
+    meta = torch.empty((crm.N_STATE, n), device="meta")
+    mcells = sph.SortedCells(*(t.to("meta") for t in
+                               (cells.cell, cells.start, cells.count)),
+                             dims=cells.dims, capacity=cells.capacity)
+    mv = torch.empty((crm.N_MV, n), device="meta")
+    with pytest.raises(ValueError):
+        crm.crm_momentum(meta, mcells, c, mv=mv)
+    with pytest.raises(ValueError):
+        crm.crm_gradv_stress(meta, mv, mcells, c, torch.empty_like(meta))
+    with pytest.raises(ValueError):
+        crm.crm_outer_substeps(meta, mcells, c, 2, torch.empty_like(meta),
+                               torch.empty((3, n), device="meta"))
+    with pytest.raises(ValueError):               # neither output
+        crm.crm_momentum(feat, cells, c)
+
+
+@pytest.mark.cuda
+def test_crm_kernels_match_twins(card):
+    """Phase 5 of chip_smoke.py: each sweep against its twin after one
+    substep of the stirred mini bed, crm_outer against the per-sweep
+    kernels and its twin, and the whole path after 3 cycles."""
+    before = _crm_launches()
+    errs, outer = card.crm_one_substep()
+    for group in (errs, outer):
+        assert all(np.isfinite(e) and r <= 1.0 for planes in group.values()
+                   for e, r in planes.values())
+    assert card.crm_three_cycles() < 1.0
+    assert all(a > b for a, b in zip(_crm_launches(), before))
+
+
+@pytest.mark.cuda
+def test_crm_wrappers_check_inputs(card):
+    feat, cells, c = _crm_mini_cells("cuda")
+    n = feat.shape[1]
+    mv = feat.new_empty((crm.N_MV, n))
+    with pytest.raises(ValueError):               # in place
+        crm.crm_gradv_stress(feat, mv, cells, c, feat)
+    with pytest.raises(ValueError):               # mv and acc alias
+        crm.crm_momentum(feat, cells, c, mv=mv, acc=mv[:3])
+    with pytest.raises(ValueError):               # overlap, other start
+        crm.crm_momentum(feat, cells, c, mv=mv, acc=mv[1:4])
+    with pytest.raises(ValueError):               # wrong dtype
+        crm.crm_momentum(feat.double(), cells, c, mv=mv)
+    with pytest.raises(ValueError):               # wrong shape
+        crm.crm_gradv_stress(feat, mv[:3].contiguous(), cells, c,
+                             torch.empty_like(feat))
+    with pytest.raises(ValueError):               # no substep
+        crm.crm_outer_substeps(feat, cells, c, 0, torch.empty_like(feat),
+                               feat.new_empty((3, n)))
+    crm.crm_momentum(feat, cells, c, mv=mv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(mv).all())
+
+
+@pytest.mark.cuda
+def test_crm_kernels_match_twins_past_capacity(card):
+    """With C below the fullest cell, the kernels and the twins agree on
+    which markers take part, and the rest keep their state bit for bit."""
+    from chrono_tpu_torch.fsi.sph.crm_pencil import crm_state_to_cells
+    params, soil, grid, state = card.crm_bed((0.4, 0.2), 0.1, 0.02)
+    c = crm.crm_static_params(params, soil)
+    top = int(crm_state_to_cells(grid, 32, state)[2].count.max())
+    feat, _, cells, ovf = crm_state_to_cells(grid, top - 4, state)
+    assert int(ovf) == 4
+    errs, (_, _, ref) = card.crm_sweeps_vs_twins(feat, cells, c, "C < max")
+    assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+               for e, r in planes.values())
+    past = feat[crm.VAL] < 0.5
+    assert bool(past.any())
+    assert torch.equal(ref[:, past], feat[:, past])
