@@ -46,7 +46,23 @@ once) and then runs:
    the engine's whole-outer path (bin, one ``crm_outer`` launch, unbin);
    then each kernel against its twin at those shapes, timed with CUDA
    events, and ``crm_outer`` against its 8 per-sweep launches on the
-   demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05).
+   demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05);
+7. NSC parity on the card: ``nsc_detect`` (bit for bit), ``nsc_sweep_u``
+   and ``nsc_sweep_g`` against their twins on the 24-sphere scene of
+   tests/test_nsc_pencil.py under the blade walls at θ = 0.3 (with P = 12,
+   and P = 2, which overflows), and two steps of
+   ``make_nsc_pencil_advance`` on the card against the twins on the CPU for
+   the blade scene and the dynamic blade;
+8. the NSC bladed mixer at full width: ``bench_suite.py``'s config #2
+   scene (40,000 spheres of r = 3 cm in a box tank with a rotbox blade at
+   π/3 rad/s, 50 APGD iterations, P = 6, cells of 3.5 r) for 25 warm-up
+   and 25 timed steps, checked for overflow, finite values, launch counts,
+   a blade torque that resists the spin and the deepest overlap; a
+   profiled step; then each kernel against its twin at those shapes, its
+   device time per launch from the profiler beside CUDA events around
+   back-to-back wrapper calls (at this size the host's cost per call is
+   the longer); then the same scene at 400,000 spheres (2 warm-up and 5
+   timed steps, a profiled step, each kernel's device time).
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -86,7 +102,13 @@ from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     dem_substep, dem_substep_plain,
 )
+from chrono_tpu_torch.ops.cuda import nsc_detect as nd
+from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate, dem_migrate_plain
+from chrono_tpu_torch.ops.nsc_pair import wall_geometry
+from chrono_tpu_torch.solver.nsc_pencil import (
+    NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
+)
 from chrono_tpu_torch.utils.samplers import grid_sample_box
 
 DEV = torch.device("cuda", 0)
@@ -106,7 +128,7 @@ SPH_VEL_RTOL, SPH_VEL_ATOL = 1e-4, 2e-5
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 KERNELS = ("dem_substep", "migrate", "sph_substep", "crm_substep",
-           "crm_outer")
+           "crm_outer", "nsc_detect", "nsc_sweep")
 
 
 def require(ok, msg):
@@ -715,29 +737,53 @@ def sph_main_path(card, profile):
 
 
 def profile_cycle(adv, state):
-    """Trace one 1-cycle advance call: wall time, device time per kernel
-    name, and the device's idle share of the wall."""
+    """Trace one 1-cycle advance call of the dam break."""
+    profile_call("one SPH cycle", lambda: adv(state, 1))
+
+
+def device_events(fn):
+    """Run ``fn`` under ``torch.profiler``: ``(wall seconds, device
+    events)``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        adv(state, 1)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_call(what, fn):
+    """Trace ``fn``: wall time, device time per kernel name, and the
+    device's idle share of the wall (with the profiler on)."""
+    wall, events = device_events(fn)
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
-    print(f"profile, one SPH cycle: wall {wall * 1e3:.3f} ms, device busy "
+    print(f"profile, {what}: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy:.3f} ms over {len(events)} device events, idle "
           f"{1 - busy / (wall * 1e3):.4f} of the wall (profiler on)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms  {name[:90]}")
+
+
+def kernel_device_ms(fn, kernel, reps):
+    """A kernel's mean device time per launch over ``reps`` calls of
+    ``fn``, from the profiler's device events named ``kernel``: for a
+    kernel shorter than its host-side launch, CUDA events around a run of
+    launches time the host, not the kernel."""
+    fn()
+    _, events = device_events(lambda: [fn() for _ in range(reps)])
+    times = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+    require(len(times) == reps, f"the profiler saw {len(times)} launches "
+            f"of {kernel}, not {reps}")
+    return sum(times) / reps / 1e3
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1163,6 +1209,494 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
     return rows
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+NSC_R = 0.05
+# the blade scene of tests/test_nsc_pencil.py:352 (a floor and a rotbox)
+NSC_BLADE_WALLS = (("plane", (0.0, 0.0, 1.0), 0.0, (0.0, 0.0, 0.0), 0.4),
+                   ("rotbox", 2, (0.3, 0.3, 0.1), (0.25, 0.04, 0.1),
+                    np.pi / 3, 0.4))
+# the tolerances the JAX package holds its NSC backends to: one sweep (u,
+# γ⁺) rtol 1e-5 / atol 1e-6, the whole path x 2e-5, v 2e-4, ω 2e-3 (atol),
+# the dynamic blade's spin rtol 2e-4 / atol 1e-6, x rtol 1e-4 / atol 2e-6,
+# v rtol 2e-3 / atol 2e-5 (tests/test_nsc_pencil.py, test_nsc_dynamic_blade)
+NSC_SWEEP_TOL = dict(rtol=1e-5, atol=1e-6)
+NSC_REPLACES = {
+    "nsc_detect": "chrono_tpu/ops/pallas/nsc_half_kernel.py:58",
+    "nsc_sweep_u": "chrono_tpu/ops/pallas/nsc_half_kernel.py:492",
+    "nsc_sweep_g": "chrono_tpu/ops/pallas/nsc_half_kernel.py:500"}
+NSC_SOURCES = {"nsc_detect": "chrono_tpu_torch/csrc/nsc_detect.cu",
+               "nsc_sweep_u": "chrono_tpu_torch/csrc/nsc_sweep.cu",
+               "nsc_sweep_g": "chrono_tpu_torch/csrc/nsc_sweep.cu"}
+NSC_KERNELS = ("nsc_detect", "nsc_sweep_u", "nsc_sweep_g")
+
+
+def nsc_launches():
+    return {"nsc_detect": nd.nsc_detect.launches,
+            "nsc_sweep_u": ns.nsc_sweep_u.launches,
+            "nsc_sweep_g": ns.nsc_sweep_g.launches}
+
+
+def nsc_reset_launches():
+    nd.nsc_detect.launches = 0
+    ns.nsc_sweep_u.launches = ns.nsc_sweep_g.launches = 0
+
+
+def nsc_bin(grid, pos, vel, omega, p, capacity=8, device=None):
+    """``(pos_s (3, N), u_free (6, N), cells, overflow)``: the bodies sorted
+    by cell as one DVI step sorts them, on ``device`` (the card by
+    default)."""
+    dev = device or DEV
+    pos, vel, omega = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                       for a in (pos, vel, omega))
+    order, cells, ovf = bin_to_cells(grid, capacity, pos)
+    g = torch.tensor(p.gravity, dtype=torch.float32, device=dev)
+    ufree = torch.cat([(vel + p.dt * g)[order].T, omega[order].T])
+    return pos[order].T.contiguous(), ufree.contiguous(), cells, int(ovf)
+
+
+def nsc_blade_cs(walls, theta, device=None):
+    """(R, 3) (cos θ, sin θ, ω) of the rotbox walls at pose θ."""
+    rows = [(np.cos(theta), np.sin(theta), w[4]) for w in walls
+            if w[0] == "rotbox"]
+    return torch.tensor(rows, dtype=torch.float32,
+                        device=device or DEV).reshape(-1, 3)
+
+
+def nsc_u_close(got, ref, what):
+    """A u plane at the sweep tolerance, its atol taken at the plane's
+    scale (1e-6·max(1, max|ref|)): u sums contact terms much larger than
+    itself (one 0.01 N·s tangential impulse turns a 3 cm sphere by ~4
+    rad/s), so its rounding scales with them, not with u."""
+    scale = max(1.0, float(ref.abs().max()))
+    return check_close(got, ref, NSC_SWEEP_TOL["rtol"],
+                       NSC_SWEEP_TOL["atol"] * scale, what)
+
+
+def nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, P, what, seed=5,
+                         beta=0.3):
+    """Each NSC kernel against its twin from the same inputs: ``nsc_detect``
+    bit for bit; U from random multipliers (impulses of 0.005–0.01 N·s, a
+    step's contact impulses) on the detected contacts and every wall row;
+    G from U's twin output.  Returns the errors by kernel and plane, and the
+    inputs of each kernel for timing."""
+    dc = nd.DetectConsts.of(c.radius, c.envelope)
+    part, count = nd.nsc_detect(pos_s, cells, P, dc)
+    rp, rc = nd.nsc_detect_plain(pos_s, cells, P, dc)
+    require(torch.equal(part, rp) and torch.equal(count, rc),
+            f"{what}: nsc_detect differs from its twin")
+    rev = nd.reverse_table(part)
+    n, W = pos_s.shape[1], len(c.walls)
+    rng = np.random.default_rng(seed)
+    valid = (part >= 0).cpu().numpy()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=DEV)
+
+    gam, gprev = (t(np.where(valid, rng.uniform(-0.005, 0.01, (3, n, P)),
+                             0.0)) for _ in range(2))
+    wgam, wgprev = (t(rng.uniform(-0.005, 0.01, (3, n, W)))
+                    for _ in range(2))
+    u = torch.empty_like(ufree)
+    ns.nsc_sweep_u(pos_s, ufree, gam, gprev, wgam, wgprev, beta, part, rev,
+                   cs, c, u)
+    ref_u = ns.nsc_sweep_u_plain(pos_s, ufree, gam, gprev, wgam, wgprev,
+                                 beta, part, cs, c)
+    gout, wout = torch.empty_like(gam), torch.empty_like(wgam)
+    ns.nsc_sweep_g(pos_s, ref_u, gam, gprev, wgam, wgprev, beta, part, cs, c,
+                   gout, wout)
+    ref_g, ref_w = ns.nsc_sweep_g_plain(pos_s, ref_u, gam, gprev, wgam,
+                                        wgprev, beta, part, cs, c)
+    errs = {
+        "nsc_detect": {"partners": (0.0, 0.0)},
+        "nsc_sweep_u": {
+            "v": nsc_u_close(u[0:3], ref_u[0:3], f"{what} nsc_sweep_u v"),
+            "w": nsc_u_close(u[3:6], ref_u[3:6], f"{what} nsc_sweep_u w")},
+        "nsc_sweep_g": {
+            "gamma": check_close(gout, ref_g, **NSC_SWEEP_TOL,
+                                 what=f"{what} nsc_sweep_g gamma"),
+            "wall gamma": check_close(wout, ref_w, **NSC_SWEEP_TOL,
+                                      what=f"{what} nsc_sweep_g wall gamma")}}
+    require(float((u - ufree).abs().max()) > 1e-4
+            and bool((ref_g != 0).any()), f"{what}: no contact acted")
+    inputs = dict(part=part, count=count, rev=rev, gam=gam, gprev=gprev,
+                  wgam=wgam, wgprev=wgprev, u=ref_u, beta=beta, dc=dc)
+    return errs, inputs
+
+
+def nsc_sweep_scene():
+    """The 24-sphere detection scene of tests/test_nsc_pencil.py:327 (seed
+    11) under the blade walls at θ = 0.3, random velocities (seed 5)."""
+    rng = np.random.default_rng(11)
+    pos = rng.uniform(0.12, 0.42, (24, 3)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    vel = rng.normal(0.0, 0.2, pos.shape)
+    om = rng.normal(0.0, 2.0, pos.shape)
+    p = NSCPencilParams(radius=NSC_R, mass=0.5, mu=0.3, dt=1e-3,
+                        envelope=0.05 * NSC_R)
+    grid = GridSpec(cell_size=2.1 * NSC_R, dims=(5, 5, 5))
+    return p, grid, pos, vel, om
+
+
+def nsc_one_sweep():
+    """Phase 7's kernel checks on the sweep scene, with P = 12 and with
+    P = 2 (which overflows: only the first two partners are kept)."""
+    p, grid, pos, vel, om = nsc_sweep_scene()
+    pos_s, ufree, cells, ovf = nsc_bin(grid, pos, vel, om, p)
+    require(ovf == 0, "the sweep scene overflows its cells")
+    c = nsc_static_params(p, NSC_BLADE_WALLS)
+    cs = nsc_blade_cs(NSC_BLADE_WALLS, 0.3)
+    out = {}
+    for P in (12, 2):
+        errs, inp = nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, P,
+                                         f"sweep scene P={P}")
+        over = max(int(inp["count"].max()) - P, 0)
+        require((over > 0) == (P == 2), f"P={P}: partner overflow {over}")
+        out[P] = errs
+    return out
+
+
+def nsc_blade_scene(dynamic):
+    """The blade scene of tests/test_nsc_pencil.py:361 (14 spheres, seed
+    11, θ0 = 0.3) or the dynamic blade of tests/test_nsc_dynamic_blade.py
+    (its spin a solver variable, driven by 0.05 N·m)."""
+    if not dynamic:
+        rng = np.random.default_rng(11)
+        p = NSCPencilParams(radius=NSC_R, mass=0.5, mu=0.3, dt=1e-3,
+                            n_iter=10, envelope=0.002 * NSC_R)
+        pos = rng.uniform(0.12, 0.45, (14, 3))
+        vel = rng.normal(0.0, 0.2, (14, 3))
+        grid = GridSpec(cell_size=2.1 * NSC_R, dims=(5, 5, 5))
+        return p, grid, NSC_BLADE_WALLS, pos, vel, dict(theta0=[0.3])
+    cell = 2.1 * NSC_R
+    c = (3 * cell, 3 * cell, NSC_R)
+    walls = (NSC_BLADE_WALLS[0],
+             ("rotbox", 2, c, (2.2 * NSC_R, 0.8 * NSC_R, 1.2 * NSC_R), 0.0,
+              0.3))
+    p = NSCPencilParams(radius=NSC_R, mass=0.2, mu=0.3, dt=1e-3, n_iter=30,
+                        envelope=0.1 * NSC_R, omega=0.3, blade_inertia=0.05,
+                        blade_torque=0.05)
+    du, dv = 1.6 * NSC_R, 1.801 * NSC_R
+    pos = np.asarray([[c[0] + du, c[1] + dv, NSC_R],
+                      [c[0] - du, c[1] - dv, NSC_R]])
+    grid = GridSpec(cell_size=cell, dims=(6, 6, 4))
+    return p, grid, walls, pos, np.zeros((2, 3)), dict(wspin0=[0.0])
+
+
+def nsc_two_steps(dynamic):
+    """Two steps of the whole path on the card against the twins on the
+    CPU; returns the max abs error over x, v, ω (and the spin)."""
+    p, grid, walls, pos, vel, kw = nsc_blade_scene(dynamic)
+    z = np.zeros_like(pos)
+    card, plain = (make_nsc_pencil_advance(p, grid, walls, device=dev)(
+        pos, vel, z, 2, **kw) for dev in (DEV, torch.device("cpu")))
+    require(int(card[3]) == 0 and int(plain[3]) == 0, "NSC scene overflow")
+    if dynamic:
+        errs = [assert_close(card[0], plain[0], 1e-4, 2e-6, "dyn blade x"),
+                assert_close(card[1], plain[1], 2e-3, 2e-5, "dyn blade v"),
+                assert_close(card[4], plain[4], 2e-4, 1e-6, "dyn blade spin")]
+        require(float(card[4][0]) > 0.0, "the dynamic blade did not spin up")
+    else:
+        errs = [assert_close(g, r, 0.0, atol, f"blade {name}") for g, r, atol,
+                name in zip(card[:3], plain[:3], (2e-5, 2e-4, 2e-3),
+                            ("x", "v", "w"))]
+    require(float(plain[1].abs().max()) > (1e-6 if dynamic else 0.01),
+            "no NSC contact acted")
+    return max(errs)
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def mixer_scene(n_target=40_000):
+    """bench_suite.py:296-407 bench_mixer_blade's scene (config #2, the
+    reference's bladed mixer with gravity along −x): spheres of r = 3 cm,
+    0.2 kg, μ 0.4, dt 2e-3 s, 50 APGD iterations, envelope 0.1 r, ω 0.3; a
+    box tank of aspect 4 filled to a 0.58 packing by volume, cells of
+    3.5 r with C = 8, five planes and a rotbox blade (0.45 Ly × 2r × 0.7
+    depth half extents) spinning at π/3 rad/s about x; the lattice fill of
+    2.02 r spacing skips the blade's footprint, jitter ±0.005 r (seed 4)."""
+    radius = 0.03
+    aspect = 4.0
+    vol = n_target * (4.0 / 3.0) * np.pi * radius ** 3 / 0.58
+    Ly = (4.0 * vol / aspect) ** (1 / 3)
+    Lz = aspect * Ly
+    depth = vol / (Ly * Lz)
+    cell = 3.5 * radius
+    dims = (int(np.ceil(3.0 * depth / cell)), int(np.ceil(Ly / cell)) + 2,
+            int(np.ceil(Lz / cell)) + 2)
+    grid = GridSpec(origin=(0.0, -cell, -cell), cell_size=cell, dims=dims)
+    cy, cz = Ly / 2, Lz / 2
+    spin = np.pi / 3
+    blade = ("rotbox", 0, (0.6 * depth, cy, cz),
+             (0.45 * Ly, 2.0 * radius, 0.7 * depth), spin, 0.4)
+    walls = (("plane", (1.0, 0.0, 0.0), 0.0, (0.0, 0.0, 0.0), 0.4),
+             ("plane", (0.0, 1.0, 0.0), 0.0, (0.0, 0.0, 0.0), 0.3),
+             ("plane", (0.0, -1.0, 0.0), -Ly, (0.0, 0.0, 0.0), 0.3),
+             ("plane", (0.0, 0.0, 1.0), 0.0, (0.0, 0.0, 0.0), 0.3),
+             ("plane", (0.0, 0.0, -1.0), -Lz, (0.0, 0.0, 0.0), 0.3),
+             blade)
+    p = NSCPencilParams(radius=radius, mass=0.2, mu=0.4,
+                        gravity=(-9.81, 0.0, 0.0), dt=2e-3, n_iter=50,
+                        envelope=0.1 * radius, omega=0.3,
+                        track_wall_reactions=True)
+    rng = np.random.default_rng(4)
+    s = 2.02 * radius
+    ix, iy, iz = np.meshgrid(np.arange(radius * 1.2, 2.0 * depth, s),
+                             np.arange(radius * 1.2, Ly - radius, s),
+                             np.arange(radius * 1.2, Lz - radius, s),
+                             indexing="ij")
+    ix, iy, iz = ix.ravel(), iy.ravel(), iz.ravel()
+    footprint = ((np.abs(iy - cy) < 0.45 * Ly + 3 * radius)
+                 & (np.abs(iz - cz) < 5 * radius)
+                 & (ix < 1.4 * depth + radius))
+    pts = np.stack([ix, iy, iz], 1)[~footprint][:n_target]
+    pts = pts + rng.uniform(-0.005, 0.005, pts.shape) * radius
+    return p, grid, walls, pts, spin
+
+
+def count_pairs(pos_s, cells, radius, envelope):
+    """``bench_suite.py:410`` ``_count_pairs`` on cell-sorted bodies: the
+    pairs closer than 2r + envelope, each once, and the deepest pair
+    overlap 2r − |d|."""
+    n = pos_s.shape[1]
+    total, deepest = 0, 0.0
+    step = max(1, (1 << 24) // (27 * cells.capacity))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        j, ok, _ = sph.neighbour_candidates(cells, lo, hi)
+        d = pos_s[:, lo:hi, None] - pos_s[:, j]
+        dist = torch.sqrt((d * d).sum(0) + 1e-18)
+        total += int((ok & (dist < 2 * radius + envelope)).sum())
+        deepest = max(deepest, float(torch.where(
+            ok, 2 * radius - dist, torch.zeros_like(dist)).max()))
+    return total // 2, deepest
+
+
+def nsc_penetration(pos_s, cells, p, walls, theta):
+    """The deepest overlap of a pair or of a body with a wall (m)."""
+    _, deepest = count_pairs(pos_s, cells, p.radius, p.envelope)
+    cs = nsc_blade_cs(walls, theta)
+    for wall, pose in zip(walls, ns.wall_poses(
+            nsc_static_params(p, walls), cs)):
+        gap = wall_geometry(wall, pos_s[0], pos_s[1], pos_s[2], p.radius,
+                            pose)[1]
+        deepest = max(deepest, float((-gap).max()))
+    return deepest
+
+
+# bounds of the NSC kernels: float32 operations counted from
+# csrc/nsc_pair.cuh and csrc/nsc_sweep.cu.  A detection candidate: the
+# distance test (3 sub, 5 mul/add, add, sqrt, sub, compare).  A pair
+# contact in U: its frame (~46), y (9), both sides' force and torque (~39);
+# in G: the frame, the constraint velocity (~36), b, s, y and the cone
+# projection (~79 more).  Every body tests every wall (a plane ~8, a rotbox
+# ~60); a wall contact adds its tangents and, in U, its impulse (~67), in
+# G its velocity, step and projection (~104).
+NSC_OPS = {"detect_candidate": 12, "u_contact": 95, "g_contact": 125,
+           "u_wall_contact": 67, "g_wall_contact": 104}
+NSC_WALL_TEST_OPS = {"plane": 8, "cyl": 20, "rotbox": 60}
+
+
+def detect_candidates(cells):
+    """The candidate pairs of the forward half stencil: per body, the
+    bodies of its 13 forward cells and those after it in its own cell."""
+    nx, ny, nz = cells.dims
+    cnt = cells.count.long().reshape(nx, ny, nz)
+    pad = torch.nn.functional.pad(cnt, (1, 1, 1, 1, 1, 1))
+    fwd = torch.zeros_like(cnt)
+    for k in range(13):
+        dx, dy, dz = nd.class_offset(k)
+        fwd += pad[1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, 1 + dz:1 + dz + nz]
+    return int((cnt * fwd + cnt * (cnt - 1) // 2).sum())
+
+
+def nsc_bounds(n, P, walls, cells, inp, pos_s, c, cs):
+    """(bound_ms, bound_by) of each kernel from this run's inputs: each
+    input the function needs read once (the multipliers of the contacts
+    there are, not of the empty slots), each output written once; the
+    operations the function needs on these inputs."""
+    W = len(walls)
+    contacts = int((inp["part"] >= 0).sum())
+    gaps = [wall_geometry(w, pos_s[0], pos_s[1], pos_s[2], c.radius, pose)[1]
+            for w, pose in zip(walls, ns.wall_poses(c, cs))]
+    wall_contacts = sum(int((g < c.envelope).sum()) for g in gaps)
+    wall_tests = n * sum(NSC_WALL_TEST_OPS[w[0]] for w in walls)
+    table = (n + 2 * cells.start.numel()) * 4
+    # both sweeps read x, their u, the partner table, the pose rows and
+    # (γ, γ_prev) of every contact; U also the reverse table
+    common = 12 * n + 24 * n + 4 * n * P + 4 * cs.numel() \
+        + 24 * (contacts + wall_contacts)
+    return contacts, wall_contacts, {
+        "nsc_detect": bound(12 * n + table + 4 * (n * P + n),
+                            detect_candidates(cells)
+                            * NSC_OPS["detect_candidate"]),
+        "nsc_sweep_u": bound(common + 8 * n + 4 * contacts + 24 * n,
+                             contacts * NSC_OPS["u_contact"] + wall_tests
+                             + wall_contacts * NSC_OPS["u_wall_contact"]),
+        "nsc_sweep_g": bound(common + 12 * n * (P + W),
+                             contacts * NSC_OPS["g_contact"] + wall_tests
+                             + wall_contacts * NSC_OPS["g_wall_contact"])}
+
+
+def nsc_run(adv, pts, warm, steps, theta0):
+    """From rest at ``pts``, ``warm`` steps (the bench's settle), then
+    ``steps`` timed ones from pose ``theta0``: ``(advance's outputs, wall
+    seconds)``; the last output is the last step's (force, torque) of each
+    wall."""
+    z = np.zeros_like(pts)
+    out = adv(pts, z, z, warm)
+    require(int(out[3]) == 0, f"warm-up overflow {int(out[3])}")
+    pos, vel, om = out[:3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = adv(pos, vel, om, steps, theta0=[theta0])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# the blow-up guard: the deepest overlap after the run, in radii.  A CPU
+# rehearsal of the 40,000-sphere run (the twins, the same 50 steps) ended
+# at 0.0121 r; 0.25 r is a blow-up, not a difference of sum order.
+NSC_MAX_OVERLAP_R = 0.25
+
+
+def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
+    p, grid, walls, pts, spin = mixer_scene(n_target)
+    n = len(pts)
+    P = 6
+    print(f"NSC mixer: {n} spheres r {p.radius}, grid {grid.dims} "
+          f"({grid.n_cells} cells of {grid.cell_size:.4f} m, C=8), P={P}, "
+          f"{p.n_iter} APGD iterations, dt {p.dt}, {len(walls)} walls "
+          f"(rotbox at {spin:.6f} rad/s)")
+    adv = make_nsc_pencil_advance(p, grid, walls, partners=P, device=DEV)
+    nsc_reset_launches()
+    out, wall = nsc_run(adv, pts, warm, steps, warm * p.dt * spin)
+    launches = nsc_launches()
+    pos, vel, om, ovf, (wforce, wtorque) = out
+    require(int(ovf) == 0, f"overflow {int(ovf)}")
+    require(all(bool(torch.isfinite(a).all()) for a in (pos, vel, om)),
+            "non-finite state")
+    total = warm + steps
+    require(launches == {"nsc_detect": total,
+                         "nsc_sweep_u": total * (p.n_iter + 1),
+                         "nsc_sweep_g": total * p.n_iter},
+            f"launch counts {launches}")
+    theta = total * p.dt * spin
+    pos_s, _, cells, _ = nsc_bin(grid, pos, vel, om, p)
+    contacts, _ = count_pairs(pos_s, cells, p.radius, p.envelope)
+    deepest = nsc_penetration(pos_s, cells, p, walls, theta)
+    torque_x = float(wtorque[5, 0])
+    require(torque_x < 0.0, f"blade torque about x {torque_x} >= 0: it "
+            "does not resist the spin")
+    require(deepest < NSC_MAX_OVERLAP_R * p.radius,
+            f"deepest overlap {deepest} m beyond "
+            f"{NSC_MAX_OVERLAP_R} r: blow-up")
+    rate = p.n_iter * steps / wall
+    print(f"NSC mixer {n}: ovf 0, finite, launches {launches}, {contacts} "
+          f"contacts, blade torque about x {torque_x:.6f} N·m, deepest "
+          f"overlap {deepest / p.radius:.6f} r")
+    print(f"NSC mixer {n}: {steps} steps in {wall:.4f} s = {rate:.6e} DVI "
+          f"iterations/s, {wall / steps * 1e3:.4f} ms/step, RTF "
+          f"{wall / (steps * p.dt):.4f} (host clock after synchronize) on "
+          f"{card}")
+    profile_call(f"one mixer step at {n}", lambda: adv(
+        pos, vel, om, 1, theta0=[theta]))
+
+    # each kernel against its twin at the main path's shapes
+    pos_s, ufree, cells, _ = nsc_bin(grid, pos, vel, om, p)
+    c = nsc_static_params(p, walls)
+    cs = nsc_blade_cs(walls, theta)
+    errs, inp = nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, P,
+                                     f"mixer {n}")
+    print(f"NSC kernels vs twins at {n}: {format_errs(errs)}")
+    g2, w2 = torch.empty_like(inp["gam"]), torch.empty_like(inp["wgam"])
+    u2 = torch.empty_like(ufree)
+    a = (inp["gam"], inp["gprev"], inp["wgam"], inp["wgprev"], inp["beta"])
+    calls = {
+        "nsc_detect": (lambda: nd.nsc_detect(pos_s, cells, P, inp["dc"]),
+                       lambda: nd.nsc_detect_plain(pos_s, cells, P,
+                                                   inp["dc"])),
+        "nsc_sweep_u": (
+            lambda: ns.nsc_sweep_u(pos_s, ufree, *a, inp["part"], inp["rev"],
+                                   cs, c, u2),
+            lambda: ns.nsc_sweep_u_plain(pos_s, ufree, *a, inp["part"], cs,
+                                         c)),
+        "nsc_sweep_g": (
+            lambda: ns.nsc_sweep_g(pos_s, inp["u"], *a, inp["part"], cs, c,
+                                   g2, w2),
+            lambda: ns.nsc_sweep_g_plain(pos_s, inp["u"], *a, inp["part"],
+                                         cs, c))}
+    contacts_p, wall_contacts, bounds = nsc_bounds(n, P, walls, cells, inp,
+                                                  pos_s, c, cs)
+    rows = []
+    for name in NSC_KERNELS:
+        ms = kernel_device_ms(calls[name][0], f"{name}_kernel", 50)
+        issue_ms = cuda_ms(calls[name][0], 50)
+        plain_ms = cuda_ms(calls[name][1], 3)
+        bms, by = bounds[name]
+        plane = max(errs[name], key=lambda q: errs[name][q][0])
+        err = errs[name][plane][0]
+        over_tol = max(r for _, r in errs[name].values())
+        print(f"{name} at {n}: max abs err {err:.3e} ({plane}), "
+              f"{over_tol:.3f} of its tolerance, {ms:.4f} ms of device time "
+              f"per launch ({issue_ms:.4f} ms per wrapper call back to "
+              f"back; plain twin {plain_ms:.4f} ms), {contacts_p} pair and "
+              f"{wall_contacts} wall contacts, bound {bms:.6f} ms by {by}")
+        rows.append({
+            "name": name, "route": "cuda", "source": NSC_SOURCES[name],
+            "replaces": NSC_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "max_abs_err_plane": plane,
+            "err_over_tol": over_tol, "ms": ms, "wrapper_ms": issue_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+    return rows
+
+
+def mixer_large(card, n_target=400_000):
+    """The same scene at 400,000 spheres, 2 warm-up and 5 timed steps, and
+    each kernel's time there: where the kernels, not the launches, set the
+    pace."""
+    p, grid, walls, pts, spin = mixer_scene(n_target)
+    n = len(pts)
+    adv = make_nsc_pencil_advance(p, grid, walls, partners=6, device=DEV)
+    out, wall = nsc_run(adv, pts, 2, 5, 2 * p.dt * spin)
+    pos, vel, om, ovf, (_, wtorque) = out
+    require(int(ovf) == 0 and all(bool(torch.isfinite(a).all()) for a in
+                                  (pos, vel, om)),
+            f"{n} spheres: overflow {int(ovf)} or non-finite state")
+    profile_call(f"one mixer step at {n}", lambda: adv(
+        pos, vel, om, 1, theta0=[7 * p.dt * spin]))
+    pos_s, ufree, cells, _ = nsc_bin(grid, pos, vel, om, p)
+    contacts, _ = count_pairs(pos_s, cells, p.radius, p.envelope)
+    c = nsc_static_params(p, walls)
+    cs = nsc_blade_cs(walls, 7 * p.dt * spin)
+    dc = nd.DetectConsts.of(p.radius, p.envelope)
+    part, _ = nd.nsc_detect(pos_s, cells, 6, dc)
+    rev = nd.reverse_table(part)
+    W = len(walls)
+    g = torch.zeros((3, n, 6), device=DEV)
+    wg = torch.zeros((3, n, W), device=DEV)
+    u = torch.empty_like(ufree)
+    gout, wout = torch.empty_like(g), torch.empty_like(wg)
+    calls = {
+        "nsc_detect": lambda: nd.nsc_detect(pos_s, cells, 6, dc),
+        "nsc_sweep_u": lambda: ns.nsc_sweep_u(
+            pos_s, ufree, g, g, wg, wg, 0.3, part, rev, cs, c, u),
+        "nsc_sweep_g": lambda: ns.nsc_sweep_g(
+            pos_s, ufree, g, g, wg, wg, 0.3, part, cs, c, gout, wout)}
+    ms = {k: kernel_device_ms(f, f"{k}_kernel", 20) for k, f in calls.items()}
+    rate = p.n_iter * 5 / wall
+    print(f"NSC mixer {n}: grid {grid.dims}, ovf 0, {contacts} contacts, "
+          f"blade torque about x {float(wtorque[5, 0]):.6f} N·m; 5 steps in "
+          f"{wall:.4f} s = {rate:.6e} DVI iterations/s, "
+          f"{wall / 5 * 1e3:.4f} ms/step, RTF {wall / (5 * p.dt):.4f}; "
+          "device time per launch: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f" on {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1236,6 +1770,23 @@ def main():
     t0 = time.perf_counter()
     kernels += crm_main_path(card)
     print(f"phase 6 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 7: NSC parity on the card
+    t0 = time.perf_counter()
+    for P, errs in nsc_one_sweep().items():
+        print(f"NSC kernels vs twins, sweep scene (24 spheres, blade walls "
+              f"at 0.3 rad), P={P}: {format_errs(errs)}")
+    for dynamic in (False, True):
+        what = "dynamic blade" if dynamic else "blade"
+        print(f"NSC path vs twins, {what} scene, 2 steps: max abs err "
+              f"{nsc_two_steps(dynamic):.3e}")
+    print(f"phase 7 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 8: the bladed mixer at full width, and at 400,000 spheres
+    t0 = time.perf_counter()
+    kernels += mixer_main_path(card)
+    mixer_large(card)
+    print(f"phase 8 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,5 +13,8 @@ make_cell_dense_advance``), with its two kernels ``ops.cuda.dem_substep`` and
 make_sph_advance_pencil``), with the three sweeps of
 ``ops.cuda.sph_substep``; CRM terrain alone (``fsi.crm_terrain.
 make_crm_terrain_state``, ``fsi.sph.crm_pencil.make_crm_advance_pencil``),
-with the two sweeps and the whole-outer step of ``ops.cuda.crm_substep``.
+with the two sweeps and the whole-outer step of ``ops.cuda.crm_substep``;
+the NSC many-body stepper of the bladed mixer (``solver.nsc_pencil.
+make_nsc_pencil_advance``), with contact detection ``ops.cuda.nsc_detect``
+and the two APGD sweeps of ``ops.cuda.nsc_sweep``.
 """

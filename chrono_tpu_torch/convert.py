@@ -1,12 +1,13 @@
 """Build the port's parameter objects from the JAX package's leaves.
 
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``PlaneBCs`` /
-``GridSpec`` / ``SPHParams`` / ``SPHState`` / ``CRMParams`` / ``CRMState``
-as pytrees of arrays and static fields.  A caller that holds them flattens
-each into a mapping of field name → numpy array or Python scalar (nested
-mappings for the two materials); these functions turn such mappings into
-the port's objects.
-So this package never sees JAX.
+``GridSpec`` / ``SPHParams`` / ``SPHState`` / ``CRMParams`` / ``CRMState`` /
+``NSCPencilParams`` as pytrees of arrays and static fields.  A caller that
+holds them flattens each into a mapping of field name → numpy array or
+Python scalar (nested mappings for the two materials); these functions turn
+such mappings into the port's objects.  The NSC multiplier maps move γ
+between this port's single-sided layout and the JAX dense reference's pair
+lattice.  So this package never sees JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
+from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
+from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
 
 
 def _scalar(x) -> float:
@@ -117,3 +120,80 @@ def crm_state_from_numpy(leaves: Mapping[str, Any], *, device) -> CRMState:
     return CRMState(**{f: t(f, torch.float32) for f in (
         "pos", "vel", "rho", "bce_local", "tau_d", "tau_o", "time")},
         kind=t("kind", torch.int32), body_id=t("body_id", torch.int32))
+
+
+def nsc_params_from_numpy(leaves: Mapping[str, Any]) -> NSCPencilParams:
+    """``NSCPencilParams`` from the JAX ``NSCPencilParams`` fields."""
+    floats = ("radius", "mass", "mu", "dt", "envelope", "stab_factor",
+              "max_recovery", "omega", "blade_inertia", "blade_torque")
+    return NSCPencilParams(
+        gravity=tuple(float(g) for g in np.asarray(leaves["gravity"])),
+        **{k: _scalar(leaves[k]) for k in floats if k in leaves},
+        **{k: int(leaves[k]) for k in ("n_iter", "restart_every")
+           if k in leaves},
+        **{k: bool(leaves[k]) for k in ("track_residual",
+                                        "track_wall_reactions")
+           if k in leaves})
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _cell_slots(cells: SortedCells):
+    """(N, 3) cell coordinates and (N,) slots (rank in the cell) of the
+    sorted bodies; every slot must lie below the capacity."""
+    cell = _np(cells.cell).astype(np.int64)
+    slot = np.arange(len(cell)) - _np(cells.start).astype(np.int64)[cell]
+    if (slot >= cells.capacity).any():
+        raise ValueError("a cell holds more bodies than the capacity")
+    _, ny, nz = cells.dims
+    return np.stack([cell // (ny * nz), (cell // nz) % ny, cell % nz], 1), \
+        slot
+
+
+def _k27(d):
+    """Index of the neighbour offset d ∈ {−1, 0, 1}³ in the dense
+    lattice's order (dx-major, then dy, then dz)."""
+    return ((d[:, 0] + 1) * 3 + (d[:, 1] + 1)) * 3 + (d[:, 2] + 1)
+
+
+def nsc_gamma_to_dense(gam, wgam, partners, cells: SortedCells):
+    """The port's single-sided multipliers γ (3, N, P) and wall multipliers
+    (3, N, W) of the cell-sorted bodies as the JAX dense reference holds
+    them: ``(dense (nx, ny, nz, 27, 3, C, C), wdense (nx, ny, nz, C, W,
+    3))`` float32 numpy arrays, C the capacity.  Each contact is written on
+    both sides; the partner's copy is (γn, γu, −γv), since its tangents are
+    −t1 and t2."""
+    g, wg, part = _np(gam), _np(wgam), _np(partners)
+    ijk, slot = _cell_slots(cells)
+    C, W = cells.capacity, wg.shape[2]
+    dense = np.zeros(tuple(cells.dims) + (27, 3, C, C), np.float32)
+    wdense = np.zeros(tuple(cells.dims) + (C, W, 3), np.float32)
+    o, p = np.nonzero(part >= 0)
+    j = part[o, p].astype(np.int64)
+    d = ijk[j] - ijk[o]
+    for comp, sign in ((0, 1.0), (1, 1.0), (2, -1.0)):
+        dense[ijk[o, 0], ijk[o, 1], ijk[o, 2], _k27(d), comp, slot[o],
+              slot[j]] = g[comp, o, p]
+        dense[ijk[j, 0], ijk[j, 1], ijk[j, 2], _k27(-d), comp, slot[j],
+              slot[o]] = sign * g[comp, o, p]
+    wdense[ijk[:, 0], ijk[:, 1], ijk[:, 2], slot] = wg.transpose(1, 2, 0)
+    return dense, wdense
+
+
+def nsc_gamma_from_dense(dense, wdense, partners, cells: SortedCells):
+    """The inverse of :func:`nsc_gamma_to_dense`, read from the owner's
+    copy: ``(γ (3, N, P), wγ (3, N, W))`` float32 CPU tensors, 0 in the
+    empty slots."""
+    dense, wdense, part = _np(dense), _np(wdense), _np(partners)
+    ijk, slot = _cell_slots(cells)
+    g = np.zeros((3,) + part.shape, np.float32)
+    o, p = np.nonzero(part >= 0)
+    j = part[o, p].astype(np.int64)
+    k = _k27(ijk[j] - ijk[o])
+    for comp in range(3):
+        g[comp, o, p] = dense[ijk[o, 0], ijk[o, 1], ijk[o, 2], k, comp,
+                              slot[o], slot[j]]
+    wg = wdense[ijk[:, 0], ijk[:, 1], ijk[:, 2], slot].transpose(2, 0, 1)
+    return torch.from_numpy(g), torch.from_numpy(np.ascontiguousarray(wg))

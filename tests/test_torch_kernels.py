@@ -22,12 +22,15 @@ from chrono_tpu_torch.dem.cell_dense import substep_coefs, to_cells
 from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
+from chrono_tpu_torch.ops.cuda import nsc_detect as nd
+from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.ops.cuda.dem_substep import dem_substep
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
 
 SPH_SWEEPS = ("sph_adami", "sph_momentum", "sph_continuity_drift")
 CRM_KERNELS = ("crm_momentum", "crm_gradv_stress", "crm_outer_substeps")
+NSC_KERNELS = (nd.nsc_detect, ns.nsc_sweep_u, ns.nsc_sweep_g)
 
 
 @pytest.fixture
@@ -55,9 +58,9 @@ def test_package_imports_without_building(monkeypatch):
     assert probe.stdout.strip() == "[]"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dem_substep.cu", "migrate.cu", "sph_substep.cu", "crm_substep.cu",
-        "crm_outer.cu"}
+        "crm_outer.cu", "nsc_detect.cu", "nsc_sweep.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
-        "cell_pairs.cuh", "crm_sweeps.cuh"}
+        "cell_pairs.cuh", "crm_sweeps.cuh", "nsc_pair.cuh"}
 
     def no_build(name):
         raise AssertionError(f"built {name} for a CPU tensor")
@@ -386,3 +389,123 @@ def test_crm_kernels_match_twins_past_capacity(card):
     past = feat[crm.VAL] < 0.5
     assert bool(past.any())
     assert torch.equal(ref[:, past], feat[:, past])
+
+
+def _nsc_launches():
+    return tuple(k.launches for k in NSC_KERNELS)
+
+
+def _nsc_sweep_inputs(device):
+    """The sweep scene of chip_smoke.py phase 7 on ``device``: the binned
+    bodies, the constants, the blade poses, the partner and reverse tables
+    and zero multipliers."""
+    import chip_smoke
+    from chrono_tpu_torch.solver.nsc_pencil import nsc_static_params
+    p, grid, pos, vel, om = chip_smoke.nsc_sweep_scene()
+    dev = torch.device(device)
+    pos_s, ufree, cells, _ = chip_smoke.nsc_bin(grid, pos, vel, om, p,
+                                                device=dev)
+    cs = chip_smoke.nsc_blade_cs(chip_smoke.NSC_BLADE_WALLS, 0.3, dev)
+    c = nsc_static_params(p, chip_smoke.NSC_BLADE_WALLS)
+    dc = nd.DetectConsts.of(p.radius, p.envelope)
+    part, _ = nd.nsc_detect_plain(pos_s, cells, 12, dc)
+    n, W = pos_s.shape[1], len(c.walls)
+    g = torch.zeros((3, n, 12), device=dev)
+    wg = torch.zeros((3, n, W), device=dev)
+    return pos_s, ufree, cells, c, cs, dc, part, nd.reverse_table(part), g, wg
+
+
+def test_nsc_twins_run_on_cpu_without_building(monkeypatch):
+    """CPU tensors run the NSC twins through the advance: no build, no
+    launch counted, and the wrappers give the twins' values."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    import chip_smoke
+    from chrono_tpu_torch.solver.nsc_pencil import make_nsc_pencil_advance
+    before = _nsc_launches()
+    p, grid, walls, pos, vel, kw = chip_smoke.nsc_blade_scene(False)
+    out = make_nsc_pencil_advance(p.replace(n_iter=3), grid, walls,
+                                  device="cpu")(pos, vel, 0 * vel, 1, **kw)
+    assert int(out[3]) == 0 and bool(torch.isfinite(out[1]).all())
+    pos_s, ufree, cells, c, cs, dc, part, rev, g, wg = _nsc_sweep_inputs(
+        "cpu")
+    assert torch.equal(nd.nsc_detect(pos_s, cells, 12, dc)[0], part)
+    u = torch.empty_like(ufree)
+    ns.nsc_sweep_u(pos_s, ufree, g + 0.01, g, wg + 0.01, wg, 0.3, part, rev,
+                   cs, c, u)
+    assert torch.equal(u, ns.nsc_sweep_u_plain(pos_s, ufree, g + 0.01, g,
+                                               wg + 0.01, wg, 0.3, part, cs,
+                                               c))
+    assert not torch.equal(u, ufree)
+    gout, wout = torch.empty_like(g), torch.empty_like(wg)
+    ns.nsc_sweep_g(pos_s, u, g, g, wg, wg, 0.0, part, cs, c, gout, wout)
+    ref = ns.nsc_sweep_g_plain(pos_s, u, g, g, wg, wg, 0.0, part, cs, c)
+    assert torch.equal(gout, ref[0]) and torch.equal(wout, ref[1])
+    assert _nsc_launches() == before
+
+
+def test_nsc_wrappers_raise_on_other_devices():
+    pos_s, ufree, cells, c, cs, dc, part, rev, g, wg = _nsc_sweep_inputs(
+        "cpu")
+
+    def meta(t):
+        return t.to("meta")
+
+    mcells = sph.SortedCells(*(meta(t) for t in
+                               (cells.cell, cells.start, cells.count)),
+                             dims=cells.dims, capacity=cells.capacity)
+    with pytest.raises(ValueError):
+        nd.nsc_detect(meta(pos_s), mcells, 12, dc)
+    with pytest.raises(ValueError):
+        ns.nsc_sweep_u(meta(pos_s), meta(ufree), meta(g), meta(g), meta(wg),
+                       meta(wg), 0.3, meta(part), rev, meta(cs), c,
+                       meta(ufree))
+    with pytest.raises(ValueError):
+        ns.nsc_sweep_g(meta(pos_s), meta(ufree), meta(g), meta(g), meta(wg),
+                       meta(wg), 0.3, meta(part), meta(cs), c, meta(g),
+                       meta(wg))
+
+
+@pytest.mark.cuda
+def test_nsc_kernels_match_twins(card):
+    """Phase 7 of chip_smoke.py: each NSC kernel against its twin on the
+    sweep scene (nsc_detect bit for bit, P = 12 and an overflowing P = 2),
+    and two steps of the blade and dynamic-blade scenes on the card against
+    the twins on the CPU."""
+    before = _nsc_launches()
+    for errs in card.nsc_one_sweep().values():
+        assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+                   for e, r in planes.values())
+    for dynamic in (False, True):
+        assert np.isfinite(card.nsc_two_steps(dynamic))
+    assert all(a > b for a, b in zip(_nsc_launches(), before))
+
+
+@pytest.mark.cuda
+def test_nsc_wrappers_check_inputs(card):
+    pos_s, ufree, cells, c, cs, dc, part, rev, g, wg = _nsc_sweep_inputs(
+        "cuda")
+    u = torch.empty_like(ufree)
+    with pytest.raises(ValueError):               # in place
+        ns.nsc_sweep_g(pos_s, ufree, g, g, wg, wg, 0.3, part, cs, c, g,
+                       torch.empty_like(wg))
+    gout = torch.empty_like(g)
+    with pytest.raises(ValueError):               # outputs overlap
+        ns.nsc_sweep_g(pos_s, ufree, g, g, wg, wg, 0.3, part, cs, c, gout,
+                       gout.reshape(-1)[:wg.numel()].view(wg.shape))
+    with pytest.raises(ValueError):               # wrong dtype
+        ns.nsc_sweep_u(pos_s.double(), ufree, g, g, wg, wg, 0.3, part, rev,
+                       cs, c, u)
+    with pytest.raises(ValueError):               # wrong shape
+        ns.nsc_sweep_u(pos_s, ufree, g[:, :, :6].contiguous(), g, wg, wg,
+                       0.3, part, rev, cs, c, u)
+    with pytest.raises(ValueError):               # table of the wrong type
+        ns.nsc_sweep_u(pos_s, ufree, g, g, wg, wg, 0.3, part.long(), rev, cs,
+                       c, u)
+    with pytest.raises(ValueError):               # P = 0
+        nd.nsc_detect(pos_s, cells, 0, dc)
+    ns.nsc_sweep_u(pos_s, ufree, g, g, wg, wg, 0.3, part, rev, cs, c, u)
+    torch.cuda.synchronize()
+    assert torch.equal(u, ufree)
