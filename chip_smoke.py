@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--profile]
 
 Needs one CUDA card; raises without one.  It builds the kernels of the
-three paths from ``chrono_tpu_torch/csrc`` (one nvcc per source, all at
+ported paths from ``chrono_tpu_torch/csrc`` (one nvcc per source, all at
 once) and then runs:
 
 1. DEM parity on the card: kernel K1 (``dem_substep``) against its plain
@@ -62,7 +62,23 @@ once) and then runs:
    device time per launch from the profiler beside CUDA events around
    back-to-back wrapper calls (at this size the host's cost per call is
    the longer); then the same scene at 400,000 spheres (2 warm-up and 5
-   timed steps, a profiled step, each kernel's device time).
+   timed steps, a profiled step, each kernel's device time);
+9. the DEM forces path on the card: ``dem_forces`` against its twin on the
+   120-particle box of phase 1 (both friction modes, random velocities and
+   spins), and 3 cycles of ``make_cell_dense_advance(backend="pallas")`` on
+   the card against the twins on the CPU on a scene with a conveyor floor,
+   a z-cylinder, a cone, a spherical obstacle and a sinking spinning wheel;
+10. the other cell-dense backends at full width, each for 1 warm-up and 2
+   timed cycles of 100 substeps with a sort rebin every cycle: ``bench.py``'s
+   scene for its ``sym`` / ``pencil`` engines (cells of 1.45 d, C = 8; one
+   run serves both names, the same K1 path) and for ``pallas`` / ``xla``
+   (cells of two lattice spacings, C = 16), and a silo of 1,000,000 of the
+   same spheres inside a z-cylinder over a cone around a spherical
+   obstacle through ``pallas``; each checked for overflow, finite values,
+   no wall touched and free-fall momentum, every kernel launch counted;
+   then K1 or ``dem_forces`` against its twin and timed at those shapes,
+   the forces path's wall pass and Euler step timed, one sort rebin timed,
+   and one forces-path cycle traced with ``torch.profiler``.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -76,15 +92,21 @@ import argparse
 import json
 import subprocess
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
 
+from chrono_tpu_torch import convert
 from chrono_tpu_torch.collision.cell_list import GridSpec
-from chrono_tpu_torch.dem.bc import DEMBoundaries, box_boundaries
-from chrono_tpu_torch.dem.cell_dense import (
-    make_cell_dense_advance, substep_coefs, to_cells,
+from chrono_tpu_torch.dem.bc import (
+    CONTACTS, DEMBoundaries, box_boundaries, n_walls,
 )
+from chrono_tpu_torch.dem.cell_dense import (
+    forces_substep, from_cells, integrate_slots, make_cell_dense_advance,
+    pair_coefs, slot_wall_forces, substep_coefs, to_cells, valid_slots,
+)
+from chrono_tpu_torch.dem.forces import _cross, _pair_force
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
 from chrono_tpu_torch.fsi.crm_terrain import make_crm_terrain_state
 from chrono_tpu_torch.fsi.sph.crm import CRMParams
@@ -99,6 +121,7 @@ from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
+from chrono_tpu_torch.ops.cuda.dem_forces import dem_forces, dem_forces_plain
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     dem_substep, dem_substep_plain,
 )
@@ -128,7 +151,7 @@ SPH_VEL_RTOL, SPH_VEL_ATOL = 1e-4, 2e-5
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 KERNELS = ("dem_substep", "migrate", "sph_substep", "crm_substep",
-           "crm_outer", "nsc_detect", "nsc_sweep")
+           "crm_outer", "nsc_detect", "nsc_sweep", "dem_forces")
 
 
 def require(ok, msg):
@@ -172,21 +195,29 @@ def small_scene(seed, friction_mode="single_step"):
     return params, bcs, GridSpec(cell_size=0.13, dims=dims), pos, 16
 
 
+def bench_params():
+    """bench.py's spheres and material: r = 5 mm, ρ = 2500, E = 1e7,
+    ν 0.3, e 0.5, μ 0.5 (walls alike), dt = 2e-6, 100 substeps a cycle,
+    single-step friction."""
+    radius = 0.005
+    mat = DEMMaterial(youngs=1e7, poisson=0.3, restitution=0.5, mu_s=0.5)
+    return DEMParams(radius=radius,
+                     mass=2500.0 * 4.0 / 3.0 * np.pi * radius ** 3,
+                     material=mat, wall_material=mat,
+                     gravity=(0.0, 0.0, -G), dt=2e-6, rebuild_every=100,
+                     friction_mode="single_step")
+
+
 def bench_scene(n_target=1_000_000):
     """bench.py's pinned scene (bench.py:83-158, flat engine): spheres of
     5 mm on a jittered 2.1 r lattice, cells of two lattice spacings with the
     origin at (r, r, r), z trimmed to the bed, C = 8."""
-    radius = 0.005
+    params = bench_params()
+    radius = params.radius
     spacing = 2.1 * radius
     n_side = int(np.ceil(n_target ** (1 / 3)))
     box_w = n_side * spacing * 1.02
     box_h = box_w * 1.6
-    mat = DEMMaterial(youngs=1e7, poisson=0.3, restitution=0.5, mu_s=0.5)
-    params = DEMParams(radius=radius,
-                       mass=2500.0 * 4.0 / 3.0 * np.pi * radius ** 3,
-                       material=mat, wall_material=mat,
-                       gravity=(0.0, 0.0, -G), dt=2e-6, rebuild_every=100,
-                       friction_mode="single_step")
     bcs = DEMBoundaries(planes=box_boundaries((0, 0, 0),
                                               (box_w, box_w, box_h)))
     pts = grid_sample_box((radius,) * 3,
@@ -221,6 +252,61 @@ def overlap_scene(n_side=40, seed=0):
                     dims=(n_side // 2,) * 3)
     return (params, bcs, grid,
             *(a.astype(np.float32) for a in (pts, vel, omega)), 8)
+
+
+def five_kind_walls():
+    """Numpy leaves of one wall of each kind around a 0.52 m cube of
+    0.13 m cells: a conveyor floor, a z-cylinder, a cone opening +z below
+    the floor, a spherical obstacle and a sinking, spinning wheel."""
+    f32 = np.float32
+    return {
+        "planes": {"point": np.zeros((1, 3), f32),
+                   "normal": np.array([[0.0, 0.0, 1.0]], f32),
+                   "vel": np.array([[0.2, 0.0, 0.0]], f32)},
+        "cylinders": {"center": np.array([[0.26, 0.26]], f32),
+                      "radius": np.array([0.25], f32),
+                      "vel": np.zeros((1, 3), f32)},
+        "spheres": {"center": np.array([[0.26, 0.26, 0.30]], f32),
+                    "radius": np.array([0.07], f32),
+                    "vel": np.zeros((1, 3), f32)},
+        "cones": {"apex": np.array([[0.26, 0.26, -0.12]], f32),
+                  "slope": np.array([1.6], f32),
+                  "vel": np.zeros((1, 3), f32)},
+        "wheels": {"center": np.array([[0.26, 0.26, 0.46]], f32),
+                   "axis": np.array([[1.0, 0.0, 0.0]], f32),
+                   "radius": np.array([0.06], f32),
+                   "half_width": np.array([0.12], f32),
+                   "vel": np.array([[0.0, 0.0, -0.2]], f32),
+                   "omega": np.array([[6.0, 0.0, 0.0]], f32)}}
+
+
+def five_kind_scene(n=120, seed=4):
+    """``(params, bcs, grid, pos, C)``: n particles of r = 5 cm drawn
+    uniformly in the cylinder, each at most 0.4 r deep in any wall, so that
+    every kind has contacts from the start; single-step friction with a
+    wall μ (0.3) unlike the particles' (0.5); 4 substeps per cycle."""
+    bcs = convert.dem_boundaries_from_numpy(five_kind_walls())
+    radius = 0.05
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((0, 3), np.float32)
+    while len(pos) < n:
+        cand = rng.uniform((0.0, 0.0, 0.03), (0.52, 0.52, 0.50),
+                           (4 * n, 3)).astype(np.float32)
+        gap = wall_gaps(bcs, torch.from_numpy(cand), radius)
+        pos = np.concatenate([pos, cand[(gap > -0.4 * radius).all(1)]])
+    params = DEMParams(radius=radius, mass=1.0,
+                       material=DEMMaterial(mu_s=0.5),
+                       wall_material=DEMMaterial(mu_s=0.3),
+                       gravity=(0.0, 0.0, -G), dt=2e-5, rebuild_every=4,
+                       friction_mode="single_step")
+    return (params, bcs, GridSpec(cell_size=0.13, dims=(4, 4, 4)),
+            pos[:n], 16)
+
+
+def wall_gaps(bcs, pos, radius):
+    """(N, B) signed surface gaps of every particle to every wall."""
+    return torch.cat([CONTACTS[k](getattr(bcs, k).to(pos.device), pos,
+                                  radius).gap for k in bcs.kinds()], dim=1)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -317,29 +403,132 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dem_contacts(feat, dims, C, radius):
-    """Overlapping pairs in (10, n_cells, C) slot planes, each counted from
-    both of its sides (the pairs whose force K1 must compute)."""
-    nx, ny, nz = dims
-    pos = feat[0:3].reshape(3, nx, ny, nz, C)
-    mask = feat[9].reshape(nx, ny, nz, C) > 0.5
-    pad_pos = torch.nn.functional.pad(pos, (0, 0, 1, 1, 1, 1, 1, 1))
-    pad_mask = torch.nn.functional.pad(mask, (0, 0, 1, 1, 1, 1, 1, 1))
-    eye = torch.eye(C, dtype=torch.bool, device=feat.device)
-    total = 0
-    for dx in (0, 1, 2):
-        for dy in (0, 1, 2):
-            for dz in (0, 1, 2):
-                nb = pad_pos[:, dx:dx + nx, dy:dy + ny, dz:dz + nz]
-                d2 = ((pos[..., :, None] - nb[..., None, :]) ** 2).sum(0)
-                ok = (mask[..., :, None]
-                      & pad_mask[dx:dx + nx, dy:dy + ny, dz:dz + nz][
-                          ..., None, :]
-                      & (d2 < (2.0 * radius) ** 2))
-                if (dx, dy, dz) == (1, 1, 1):
-                    ok &= ~eye
-                total += int(ok.sum())
-    return total
+# What float32 may lose on one pair, which the reference moves its inputs
+# by: the kernel's |d| (three squares, two sums, an rsqrt and a product)
+# is good to ~4.2 ulp of 2r and its relative velocity to ~3·2⁻²⁴ of the
+# speeds it sums; the reference takes twice that.  The rest of a pair's
+# float32 arithmetic is held at test_pallas_kernel's rtol.
+D_ULPS = 8
+V_EPS = 8 * 2.0 ** -24
+F32_RTOL = 1e-4
+F32_EPS = 2.0 ** -23        # an ulp of x is at most F32_EPS·|x|
+_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+
+
+def f32(x):
+    return float(np.float32(x))
+
+
+def pair_reference(feat, c, chunk_elems=2 ** 25):
+    """The pair forces and torques of (10, n_cells, C) float32 planes in
+    float64, with ``c``'s constants rounded to float32 as the kernels take
+    them, and the tolerance float32 supports: per slot and component, the
+    sum over the slot's pairs of, for each component of the pair's
+    displacement and of its relative velocity, the larger change of f when
+    that component moves by ±D_ULPS ulp of 2r or ±V_EPS of the summed
+    speeds, plus F32_RTOL·|f| (r·|f| for torques, whose normal part cancels
+    only in exact arithmetic) at the largest |f| of those moves.  Returns
+    ``(ref, tol)``, each (6, n_cells, C), and the overlaps of the contacts,
+    each pair from both of its sides.  Works on slabs of x with at most
+    ``chunk_elems`` pairs per offset."""
+    nx, ny, nz = c.dims
+    C = feat.shape[2]
+    g = feat.double().reshape((10, nx, ny, nz, C))
+    P = torch.nn.functional.pad(g, (0, 0, 1, 1, 1, 1, 1, 1))
+    r, kn, gn, kt, gt, mu, dt = (f32(getattr(c, k)) for k in
+                                 ("radius", "kn", "gn", "kt", "gt", "mu",
+                                  "dt"))
+    eps_d = D_ULPS * float(np.spacing(np.float32(2.0 * r)))
+    not_self = ~torch.eye(C, dtype=torch.bool, device=feat.device)
+    ref = g.new_zeros((6, nx, ny, nz, C))
+    tol = g.new_zeros((6, nx, ny, nz, C))
+    overlaps = []
+    step = max(1, chunk_elems // (ny * nz * C * C))
+    for i0 in range(0, nx, step):
+        i1 = min(nx, i0 + step)
+        me = g[:, i0:i1, ..., :, None]
+        for dx, dy, dz in _OFFSETS:
+            nb = P[:, 1 + dx + i0:1 + dx + i1, 1 + dy:1 + dy + ny,
+                   1 + dz:1 + dz + nz, None, :]
+            ok = (me[9] > 0.5) & (nb[9] > 0.5)
+            if (dx, dy, dz) == (0, 0, 0):
+                ok &= not_self
+            d0 = [nb[a] - me[a] for a in range(3)]
+            dv = [nb[3 + a] - me[3 + a] for a in range(3)]
+            ws = [nb[6 + a] + me[6 + a] for a in range(3)]
+            speed = sum(nb[3 + a].abs() + me[3 + a].abs() + r * ws[a].abs()
+                        for a in range(3))
+
+            def pair(d, vshift):
+                dist2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+                inv = torch.rsqrt(dist2 + 1e-18)
+                overlap = 2.0 * r - dist2 * inv
+                on = ok & (overlap > 0)
+                nh = [a * inv for a in d]
+                delta = torch.clamp(overlap, min=0.0)
+                arm = r - 0.5 * delta
+                cr = _cross(ws, nh)
+                vr = [dv[a] - arm * cr[a] + vshift[a] for a in range(3)]
+                pf = _pair_force(nh, delta, vr, on, kn, gn, kt, gt, mu, dt,
+                                 c.friction)
+                size = torch.sqrt(pf[0] * pf[0] + pf[1] * pf[1]
+                                  + pf[2] * pf[2])
+                return [*pf, *(arm * t for t in _cross(nh, pf))], \
+                    overlap[on], (size, arm * size)
+
+            zero = (0.0, 0.0, 0.0)
+            base, ov, (size, moment) = pair(d0, zero)
+            overlaps.append(ov)
+            lost = [torch.zeros_like(size)] * 6
+            for a in range(3):
+                for moved in ("d", "v"):
+                    most = None
+                    for sign in (-1.0, 1.0):
+                        if moved == "d":
+                            d = list(d0)
+                            d[a] = d0[a] + sign * eps_d
+                            out, _, (sz, mo) = pair(d, zero)
+                        else:
+                            vs = [0.0] * 3
+                            vs[a] = sign * V_EPS * speed
+                            out, _, (sz, mo) = pair(d0, vs)
+                        size = torch.maximum(size, sz)
+                        moment = torch.maximum(moment, mo)
+                        ch = [(o - b).abs() for o, b in zip(out, base)]
+                        most = ch if most is None else \
+                            [torch.maximum(m, x) for m, x in zip(most, ch)]
+                    lost = [x + m for x, m in zip(lost, most)]
+            # a component of f or of its moment sums terms as large as |f|
+            # or r·|f|, whatever the cancellation among them, and a contact
+            # that float32 may see where float64 does not brings its own
+            lost = [x + F32_RTOL * m for x, m in
+                    zip(lost, [size] * 3 + [moment] * 3)]
+            for k in range(6):
+                ref[k, i0:i1] += base[k].sum(-1)
+                tol[k, i0:i1] += lost[k].sum(-1)
+    shape = (6,) + tuple(feat.shape[1:])
+    return ref.reshape(shape), tol.reshape(shape), torch.cat(overlaps)
+
+
+def tol_ratio(got, ref, tol):
+    """``(max |got − ref|, max |got − ref| / tol)``: ≤ 1 passes, and a
+    difference where ``tol`` is 0 counts as infinitely far."""
+    err = (got.double() - ref).abs()
+    ratio = torch.where(err > 0, err / tol, torch.zeros_like(err))
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf")
+    return float(err.max()), float(ratio.max())
+
+
+def planted_faults(c, overlaps):
+    """Two wrong kernels, as constants handed to the right one: kn 1 % low,
+    and the contact radius short by half the median overlap, which drops
+    every contact shallower than the median."""
+    median = float(overlaps.median())
+    return {"kn x 0.99": replace(c, kn=0.99 * c.kn),
+            f"radius short by {0.5 * median:.3e} m":
+                replace(c, radius=c.radius - 0.5 * median)}
 
 
 # K1's float32 operations, counted from csrc/dem_substep.cu: per contact
@@ -347,6 +536,88 @@ def dem_contacts(feat, dims, C, radius):
 # six walls' distance tests, gravity and the Euler update)
 DEM_OPS_PER_CONTACT = 110
 DEM_OPS_PER_PARTICLE = 80
+# the TPU kernels K1 computes (rows 2, 4 and 5b of the kernel table): the
+# fused substep in the flat-lane, symmetric-pencil and dense-pencil layouts
+DEM_SUBSTEP_REPLACES = ("chrono_tpu/ops/pallas/dem_flat_kernel.py:169",
+                        "chrono_tpu/ops/pallas/dem_sym_kernel.py:330",
+                        "chrono_tpu/ops/pallas/dem_pencil_kernel.py:306")
+# and those dem_forces computes (rows 5a and 6): the pair forces alone
+DEM_FORCES_REPLACES = ("chrono_tpu/ops/pallas/dem_pencil_kernel.py:245",
+                       "chrono_tpu/ops/pallas/dem_cell_kernel.py:186")
+
+
+def k1_reference(feat, coefs):
+    """K1's next planes in float64 from the pair reference, and per value
+    the tolerance: the pair tolerance through dt/m and dt/I, an ulp of the
+    output, and for positions dt times the velocity's tolerance.  Holds no
+    wall force, so it is for states in which no particle touches a wall."""
+    f, f_tol, overlaps = pair_reference(feat, coefs)
+    x = feat.double()
+    m = x[9]
+    dt, inv_m, inv_I = (f32(getattr(coefs, k))
+                        for k in ("dt", "inv_m", "inv_I"))
+    g = torch.tensor([f32(a) for a in coefs.gravity], dtype=torch.float64,
+                     device=feat.device).reshape(3, 1, 1)
+    kick = dt * (f[0:3] * inv_m + g) * m
+    spin = dt * f[3:6] * inv_I * m
+    v2, w2 = x[3:6] + kick, x[6:9] + spin
+    x2 = x[0:3] + dt * v2 * m
+    v_tol = dt * inv_m * f_tol[0:3] + F32_EPS * (v2.abs() + kick.abs())
+    w_tol = dt * inv_I * f_tol[3:6] + F32_EPS * (w2.abs() + spin.abs())
+    x_tol = F32_EPS * x2.abs() + dt * v_tol
+    ref = torch.cat([x2, v2, w2, x[9:]])
+    tol = torch.cat([x_tol, v_tol * m, w_tol * m, torch.zeros_like(m)[None]])
+    return ref, tol, overlaps
+
+
+def k1_at(params, bcs, grid, C, state, what, plain=True):
+    """K1 against the float64 pair reference on the binned ``state`` (no
+    particle may touch a wall), two planted faults that must fail that
+    tolerance, K1's time (CUDA events), its twin's and its bound:
+    ``(field, K1's output, row)``."""
+    field = to_cells(grid, C, *state)
+    feat = field.feat
+    coefs = substep_coefs(params, bcs, grid, C)
+    require(float(wall_gaps(bcs, state[0], params.radius).min()) > 0.0,
+            f"K1, {what}: a particle touches a wall, which the pair "
+            "reference does not hold")
+    ref, tol, overlaps = k1_reference(feat, coefs)
+    out = torch.empty_like(feat)
+    dem_substep(feat, out, coefs)
+    err, ratio = tol_ratio(out, ref, tol)
+    planes = {k: tol_ratio(out[sl], ref[sl], tol[sl])[1] for k, sl in
+              (("x", slice(0, 3)), ("v", slice(3, 6)), ("ω", slice(6, 9)),
+               ("mask", slice(9, 10)))}
+    require(ratio <= 1.0, f"K1, {what}: {planes} of its tolerance")
+    faults = {}
+    for name, bad in planted_faults(coefs, overlaps).items():
+        dem_substep(feat, out, bad)
+        faults[name] = tol_ratio(out, ref, tol)[1]
+        require(faults[name] > 1.0, f"K1, {what}: the planted fault {name} "
+                f"passes ({faults[name]:.3f} of the tolerance)")
+    del ref, tol
+    dem_substep(feat, out, coefs)
+    ms = cuda_ms(lambda: dem_substep(feat, out, coefs), 20)
+    plain_ms = cuda_ms(lambda: dem_substep_plain(feat, coefs), 3) \
+        if plain else None
+    n_slots = feat.shape[1] * C
+    n_valid = int((feat[9] > 0.5).sum())
+    contacts = len(overlaps)
+    b = bound(2 * 10 * n_slots * 4, contacts * DEM_OPS_PER_CONTACT
+              + n_valid * DEM_OPS_PER_PARTICLE)
+    plain_txt = f" (plain twin {plain_ms:.4f} ms)" if plain else ""
+    print(f"K1, {what}: max abs err {err:.3e} against the float64 pair "
+          "reference (of its tolerance: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in planes.items())
+          + "; planted faults "
+          + ", ".join(f"{k} {v:.2f}" for k, v in faults.items())
+          + f" of it), {ms:.4f} ms per launch{plain_txt}, {contacts} "
+          f"contacts (both sides, median overlap "
+          f"{float(overlaps.median()):.3e} m) among {n_valid} particles in "
+          f"{n_slots} slots, bound {b[0]:.4f} ms by {b[1]}")
+    return field, out, {"max_abs_err": err, "err_over_tol": ratio,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                        "bound_by": b[1]}
 
 
 def main_path(card):
@@ -388,18 +659,7 @@ def main_path(card):
           f"2 migrations, unbin; host clock) on {card}")
 
     # each kernel against its twin at the main path's shapes
-    field = to_cells(grid, C, p, v, o)
-    coefs = substep_coefs(params, bcs, grid, C)
-    out = torch.empty_like(field.feat)
-    dem_substep(field.feat, out, coefs)
-    ref = dem_substep_plain(field.feat, coefs)
-    k1_err = max(assert_close(out[0:3], ref[0:3], **POS_TOL,
-                              what="K1 pos at 1M"),
-                 assert_close(out[3:9], ref[3:9], **VEL_TOL,
-                              what="K1 vel/omega at 1M"))
-    del ref
-    k1_ms = cuda_ms(lambda: dem_substep(field.feat, out, coefs), 20)
-    k1_plain_ms = cuda_ms(lambda: dem_substep_plain(field.feat, coefs), 3)
+    field, out, k1 = k1_at(params, bcs, grid, C, (p, v, o), "at 1M")
 
     ids2 = torch.empty_like(field.ids)
     count = torch.empty(grid.n_cells, dtype=torch.int32, device=DEV)
@@ -413,28 +673,19 @@ def main_path(card):
     k2_ms = cuda_ms(lambda: dem_migrate(out, field.ids, mig_out, ids2,
                                         count, grid), 20)
     k2_plain_ms = cuda_ms(lambda: dem_migrate_plain(out, field.ids, grid), 3)
-    print(f"K1 at 1M: max abs err {k1_err:.3e}, {k1_ms:.4f} ms "
-          f"(plain twin {k1_plain_ms:.4f} ms)")
     print(f"K2 at 1M: bit-exact (max abs err {k2_err}), {k2_ms:.4f} ms "
           f"(plain twin {k2_plain_ms:.4f} ms)")
     n_slots = field.feat.shape[1] * C
     n_valid = int((field.feat[9] > 0.5).sum())
-    contacts = dem_contacts(field.feat, grid.dims, C, params.radius)
-    k1_bound = bound(2 * 10 * n_slots * 4, contacts * DEM_OPS_PER_CONTACT
-                     + n_valid * DEM_OPS_PER_PARTICLE)
     # K2 reads the planes and ids, writes them and the per-cell count;
     # its work is comparisons, a few per candidate of each valid particle
     k2_bound = bound(2 * 11 * n_slots * 4 + grid.n_cells * 4, 27 * n_valid)
-    print(f"K1 at 1M: {contacts} contacts (both sides) among {n_valid} "
-          f"particles; bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
     print(f"K2 at 1M: bound {k2_bound[0]:.4f} ms by {k2_bound[1]}")
     return [
         {"name": "dem_substep", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/dem_substep.cu",
-         "replaces": "chrono_tpu/ops/pallas/dem_flat_kernel.py:169",
-         "launches": launches["dem_substep"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "replaces": "; ".join(DEM_SUBSTEP_REPLACES),
+         "launches": launches["dem_substep"], **k1, "library_ms": None},
         {"name": "dem_migrate", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/migrate.cu",
          "replaces": "chrono_tpu/ops/pallas/migrate_kernel.py:130",
@@ -773,17 +1024,36 @@ def profile_call(what, fn):
         print(f"  {ms:9.3f} ms  {name[:90]}")
 
 
-def kernel_device_ms(fn, kernel, reps):
-    """A kernel's mean device time per launch over ``reps`` calls of
-    ``fn``, from the profiler's device events named ``kernel``: for a
-    kernel shorter than its host-side launch, CUDA events around a run of
-    launches time the host, not the kernel."""
+def per_call_events(fn, reps):
+    """Device time per call of ``fn`` by kernel name, from ``reps``
+    back-to-back calls (after a warm-up call) under the profiler: ``{name:
+    (mean µs per launch, launches per call)}``.  A launch count is the
+    events seen over ``reps``, rounded: the profiler loses a few events at
+    the start of some windows (up to 2 of 20 seen), and a mean over the
+    rest does not depend on them."""
     fn()
     _, events = device_events(lambda: [fn() for _ in range(reps)])
-    times = [e.time_range.elapsed_us() for e in events if kernel in e.name]
-    require(len(times) == reps, f"the profiler saw {len(times)} launches "
-            f"of {kernel}, not {reps}")
-    return sum(times) / reps / 1e3
+    times = {}
+    for e in events:
+        times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return {k: (sum(t) / len(t), round(len(t) / reps))
+            for k, t in times.items()}
+
+
+def kernel_launches(per_call, kernel):
+    return sum(n for k, (_, n) in per_call.items() if kernel in k)
+
+
+def kernel_device_ms(fn, kernel, reps):
+    """A kernel's mean device time per launch over ``reps`` calls of
+    ``fn``, each launching it once, from the profiler's device events named
+    ``kernel``: for a kernel shorter than its host-side launch, CUDA events
+    around a run of launches time the host, not the kernel."""
+    per_call = per_call_events(fn, reps)
+    n = kernel_launches(per_call, kernel)
+    require(n == 1, f"the profiler saw {n} launches of {kernel} per call, "
+            "not 1")
+    return sum(us for k, (us, _) in per_call.items() if kernel in k) / 1e3
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1697,6 +1967,327 @@ def mixer_large(card, n_target=400_000):
           + f" on {card}")
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def forces_one_launch(params, grid, feat, what):
+    """One ``dem_forces`` launch against its twin on the same planes, at
+    test_pallas_kernel's bounds (rtol 1e-4, atol 1e-5 of the largest force,
+    and for torques of the larger of the largest torque and r·F): ``(max
+    abs err, ratio to the tolerance)``."""
+    pair = pair_coefs(params, grid, feat.shape[2])
+    got = feat.new_empty((6,) + tuple(feat.shape[1:]))
+    dem_forces(feat, got, pair)
+    ref = dem_forces_plain(feat, pair)
+    empty = feat[9] < 0.5
+    require(not bool(got[:, empty].any()), f"{what}: empty slots not zero")
+    f_scale = float(ref[0:3].abs().max())
+    t_atol = 1e-5 * max(float(ref[3:6].abs().max()), params.radius * f_scale)
+    ef, rf = check_close(got[0:3], ref[0:3], 1e-4, 1e-5 * f_scale,
+                         f"{what} force")
+    et, rt = check_close(got[3:6], ref[3:6], 1e-4, t_atol, f"{what} torque")
+    return max(ef, et), max(rf, rt)
+
+
+def forces_small(friction_mode):
+    """``dem_forces`` vs its twin on the 120-particle box with random
+    velocities and spins."""
+    params, _, grid, pos, C = small_scene(7, friction_mode)
+    rng = np.random.default_rng(3)
+    vel = rng.normal(0.0, 0.1, pos.shape).astype(np.float32)
+    omega = rng.normal(0.0, 0.5, pos.shape).astype(np.float32)
+    field = to_cells(grid, C, *(torch.as_tensor(a, device=DEV)
+                                for a in (pos, vel, omega)))
+    return forces_one_launch(params, grid, field.feat,
+                             f"dem_forces 120 particles {friction_mode}")
+
+
+def forces_path_three_cycles():
+    """The forces path (``backend="pallas"``) for 3 cycles on the card vs
+    on the CPU (twins) on the five-kind scene."""
+    params, bcs, grid, pos, C = five_kind_scene()
+    z = np.zeros_like(pos)
+    card, plain = (make_cell_dense_advance(params, bcs, grid, capacity=C,
+                                           backend="pallas",
+                                           device=dev)(pos, z, z, 3)
+                   for dev in (DEV, torch.device("cpu")))
+    require(int(card[3]) == 0 and int(plain[3]) == 0,
+            "overflow in the five-kind scene")
+    require(float(plain[2].abs().max()) > 1.0, "no wall turned a particle")
+    return max(assert_close(card[0], plain[0], **POS_TOL,
+                            what="five kinds, 3 cycles, pos"),
+               *(assert_close(g, r, **VEL_TOL,
+                              what="five kinds, 3 cycles, vel/omega")
+                 for g, r in zip(card[1:3], plain[1:3])))
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def bench_engine_scene(engine, n_target=1_000_000):
+    """bench.py's pinned scene as it builds it for ``BENCH_ENGINE`` sym or
+    pencil (cells of 1.45 d, C = 8) and pallas or xla (cells of two lattice
+    spacings, C = 16), origin 0, the grid over the whole box
+    (bench.py:83-158)."""
+    params, bcs, _, pts, _ = bench_scene(n_target)
+    radius = params.radius
+    n_side = int(np.ceil(n_target ** (1 / 3)))
+    box_w = n_side * 2.1 * radius * 1.02
+    box_h = box_w * 1.6
+    if engine in ("sym", "pencil"):
+        cell, C = 1.45 * 2.0 * radius, 8
+    else:
+        cell, C = 2.0 * 2.1 * radius, 16
+    dims = (int(np.ceil(box_w / cell)), int(np.ceil(box_w / cell)),
+            int(np.ceil(box_h / cell)))
+    return params, bcs, GridSpec(cell_size=cell, dims=dims), pts, C
+
+
+def silo_walls():
+    """Numpy leaves of the silo: a z-cylinder of R = 0.5 m about (0.5,
+    0.5), a cone with its apex at (0.5, 0.5, 0) and slope 1 opening +z,
+    and a spherical obstacle of R = 0.1 m at (0.5, 0.5, 0.7)."""
+    f32 = np.float32
+    return {"cylinders": {"center": np.array([[0.5, 0.5]], f32),
+                          "radius": np.array([0.5], f32),
+                          "vel": np.zeros((1, 3), f32)},
+            "spheres": {"center": np.array([[0.5, 0.5, 0.7]], f32),
+                        "radius": np.array([0.1], f32),
+                        "vel": np.zeros((1, 3), f32)},
+            "cones": {"apex": np.array([[0.5, 0.5, 0.0]], f32),
+                      "slope": np.array([1.0], f32),
+                      "vel": np.zeros((1, 3), f32)}}
+
+
+def silo_scene(n_target=1_000_000):
+    """bench.py's spheres and material (r = 5 mm, E = 1e7, μ 0.5, dt =
+    2e-6, 100 substeps a cycle) on a 2.1 r lattice with 3 % jitter (seed
+    0) filling the silo from the apex up, every sphere at least 0.1 r clear
+    of every wall, capped at ``n_target``; cells of 4.2 r (two lattice
+    spacings, commensurate with the lattice) over the bounding box, C =
+    16."""
+    params = bench_params()
+    radius = params.radius
+    spacing = 2.1 * radius
+    bcs = convert.dem_boundaries_from_numpy(silo_walls())
+    pts = grid_sample_box((0.0, 0.0, 0.0), (1.0, 1.0, 2.2), spacing,
+                          jitter=0.03, seed=0)
+    gap = wall_gaps(bcs, torch.as_tensor(pts, dtype=torch.float32,
+                                         device=DEV), radius)
+    inside = (gap > 0.1 * radius).all(1).cpu().numpy()
+    pts = pts[inside]
+    pts = pts[np.argsort(pts[:, 2], kind="stable")[:n_target]]
+    cell = 2.0 * spacing
+    z_hi = float(pts[:, 2].max()) + radius
+    dims = (int(np.ceil(1.0 / cell)),) * 2 + (int(np.ceil(z_hi / cell)),)
+    return (params, bcs, GridSpec(cell_size=cell, dims=dims),
+            pts.astype(np.float32), 16)
+
+
+def check_full_width(params, bcs, pos0, p, v, o, ovf, t_sim, what):
+    """ovf 0, finite, no wall touched at the start or the end and no
+    particle more than 0.25 r outside any wall, and then momentum: the
+    pair forces cancel, so the mean velocity is free fall."""
+    require(int(ovf) == 0, f"{what}: overflow {int(ovf)}")
+    require(all(bool(torch.isfinite(a).all()) for a in (p, v, o)),
+            f"{what}: non-finite state")
+    r = params.radius
+    gaps = [wall_gaps(bcs, torch.as_tensor(x, device=DEV), r).min()
+            for x in (pos0, p)]
+    require(float(gaps[1]) > -0.25 * r,
+            f"{what}: a particle {float(-gaps[1]) / r} r into a wall")
+    require(min(float(g) for g in gaps) > 0.0,
+            f"{what}: particles touch a wall (gap {gaps}), so momentum is "
+            "not free fall")
+    mean_v = v.double().mean(0).cpu()
+    require(abs(float(mean_v[2]) / (-G * t_sim) - 1) < 1e-3
+            and float(mean_v[:2].abs().max()) < 1e-3 * G * t_sim,
+            f"{what}: momentum off: mean v {mean_v.tolist()} vs -g t "
+            f"{-G * t_sim}")
+    return [float(g) / r for g in gaps], mean_v
+
+
+def run_full_width(params, bcs, grid, pos, C, backend, what, card):
+    """1 warm-up and 2 timed cycles through ``make_cell_dense_advance``
+    with the kernel counts set to 0 just before: ``(state, wall seconds,
+    launches)``."""
+    adv = make_cell_dense_advance(params, bcs, grid, capacity=C,
+                                  backend=backend, device=DEV)
+    z = np.zeros_like(pos)
+    dem_substep.launches = dem_forces.launches = 0
+    p, v, o, ovf = adv(pos, z, z, 1)
+    require(int(ovf) == 0, f"{what}: warm-up overflow {int(ovf)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, v, o, ovf2 = adv(p, v, o, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dem_substep": dem_substep.launches,
+                "dem_forces": dem_forces.launches}
+    t_sim = 3 * params.rebuild_every * params.dt
+    gaps, mean_v = check_full_width(params, bcs, pos, p, v, o, ovf2, t_sim,
+                                    what)
+    n = len(pos)
+    steps = 2 * params.rebuild_every
+    print(f"{what}: ovf 0, launches {launches}, wall gap min "
+          f"{gaps[0]:.4f} r at the start and {gaps[1]:.4f} r at the end, "
+          f"mean v {mean_v.tolist()} (free fall {-G * t_sim:.6e})")
+    print(f"{what}: {steps} substeps of {n} particles in {wall:.4f} s = "
+          f"{n * steps / wall:.6e} particle-steps/s (2 cycles, each a sort "
+          f"rebin; host clock) on {card}")
+    return (p, v, o), wall, launches
+
+
+def rebin_ms(grid, C, state):
+    """One sort rebin: bin by ``to_cells`` and unbin by ``from_cells``."""
+    def rebin():
+        field = to_cells(grid, C, *state)
+        from_cells(field, field.feat[0:3], field.feat[3:6], field.feat[6:9])
+
+    return cuda_ms(rebin, 5)
+
+
+def forces_at(params, grid, field, what):
+    """``dem_forces`` on a binned field against the float64 pair reference
+    at the tolerance float32 supports, two planted faults that must fail
+    it, its time, its twin's and its bound."""
+    feat = field.feat
+    C = feat.shape[2]
+    pair = pair_coefs(params, grid, C)
+    ref, tol, overlaps = pair_reference(feat, pair)
+    out = feat.new_empty((6,) + tuple(feat.shape[1:]))
+    dem_forces(feat, out, pair)
+    require(not bool(out[:, feat[9] < 0.5].any()),
+            f"dem_forces, {what}: empty slots not zero")
+    err, ratio = tol_ratio(out, ref, tol)
+    planes = {k: tol_ratio(out[sl], ref[sl], tol[sl])[1] for k, sl in
+              (("F", slice(0, 3)), ("T", slice(3, 6)))}
+    require(ratio <= 1.0, f"dem_forces, {what}: {planes} of its tolerance")
+    faults = {}
+    for name, bad in planted_faults(pair, overlaps).items():
+        dem_forces(feat, out, bad)
+        faults[name] = tol_ratio(out, ref, tol)[1]
+        require(faults[name] > 1.0, f"dem_forces, {what}: the planted fault "
+                f"{name} passes ({faults[name]:.3f} of the tolerance)")
+    del ref, tol
+    ms = cuda_ms(lambda: dem_forces(feat, out, pair), 20)
+    plain_ms = cuda_ms(lambda: dem_forces_plain(feat, pair), 2)
+    n_slots = feat.shape[1] * C
+    n_valid = int((feat[9] > 0.5).sum())
+    contacts = len(overlaps)
+    # every slot's mask read and its six planes written; the nine position,
+    # velocity and spin planes read for the occupied slots only
+    b = bound((7 * n_slots + 9 * n_valid) * 4, contacts * DEM_OPS_PER_CONTACT)
+    print(f"dem_forces, {what}: max abs err {err:.3e} N or N·m against the "
+          "float64 pair reference (of its tolerance: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in planes.items())
+          + "; planted faults "
+          + ", ".join(f"{k} {v:.2f}" for k, v in faults.items())
+          + f" of it), {ms:.4f} ms per launch (plain twin {plain_ms:.4f} "
+          f"ms, {contacts} contacts, median overlap "
+          f"{float(overlaps.median()):.3e} m, {n_valid} particles in "
+          f"{n_slots} slots), bound {b[0]:.4f} ms by {b[1]}")
+    return {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1]}
+
+
+def device_ms(fn, reps=20, kernel=None, launches=0):
+    """Device ms per call of ``fn``: over the kernels of ``reps``
+    back-to-back calls under ``torch.profiler``, each kernel's mean time
+    times its launches per call.  With ``kernel``, the profiler must have
+    seen ``launches`` launches of it per call."""
+    per_call = per_call_events(fn, reps)
+    if kernel is not None:
+        n = kernel_launches(per_call, kernel)
+        require(n == launches, f"the profiler saw {n} launches of {kernel} "
+                f"per call, not {launches}")
+    return sum(us * n for us, n in per_call.values()) / 1e3
+
+
+def forces_path_pieces(params, bcs, grid, C, state, what):
+    """Device ms of one forces-path substep and of its parts on the binned
+    ``state`` (profiler device time over 20 calls of each): the pair
+    kernel, the wall pass on the occupied slots, the Euler step, and the
+    whole ``forces_substep`` with its gathers and scatter; beside it the
+    whole substep's time by CUDA events around 10 back-to-back calls."""
+    field = to_cells(grid, C, *state)
+    feat = field.feat.clone()
+    sel = valid_slots(feat)
+    pair = pair_coefs(params, grid, C)
+    bcs_dev = bcs.to(DEV)
+    out = feat.new_empty((6,) + tuple(feat.shape[1:]))
+    x = feat.view(10, -1)[:, sel]
+    f = out.view(6, -1)[:, sel]
+
+    def substep():
+        forces_substep(params, bcs_dev, pair, feat, sel, out)
+
+    k = ("dem_forces_kernel", 1)
+    ms = {"dem_forces": device_ms(lambda: dem_forces(feat, out, pair), 20,
+                                  *k),
+          "wall pass": device_ms(lambda: slot_wall_forces(params, bcs_dev,
+                                                          x)),
+          "integration": device_ms(lambda: integrate_slots(params, x, f)),
+          "substep": device_ms(substep, 20, *k)}
+    events = cuda_ms(substep, 10)
+    rest = ms["substep"] - ms["dem_forces"] - ms["wall pass"] \
+        - ms["integration"]
+    print(f"forces path, {what}: per substep {ms['substep']:.4f} ms of "
+          f"device time ({events:.4f} ms by CUDA events) = dem_forces "
+          f"{ms['dem_forces']:.4f} + wall pass {ms['wall pass']:.4f} "
+          f"({n_walls(bcs)} walls x {len(sel)} particles) + integration "
+          f"{ms['integration']:.4f} + gathers and scatter {rest:.4f}; wall "
+          f"pass {ms['wall pass'] / ms['substep']:.3f} and integration "
+          f"{ms['integration'] / ms['substep']:.3f} of the substep's "
+          "device time")
+    return ms
+
+
+def dem_full_width(card, n_target=1_000_000):
+    """Phase 10: the sym / pencil scene through K1, the pallas / xla scene
+    and the silo through the forces path, each at 1,000,000 spheres:
+    ``(K1's numbers at the sym scene, dem_forces's row)``."""
+    # sym and pencil: one run serves both names (the same K1 path)
+    params, bcs, grid, pos, C = bench_engine_scene("sym", n_target)
+    what = f"sym/pencil {len(pos)} (grid {grid.dims}, C={C})"
+    state, wall, launches = run_full_width(params, bcs, grid, pos, C, "sym",
+                                           what, card)
+    require(launches == {"dem_substep": 300, "dem_forces": 0},
+            f"{what}: launch counts {launches}")
+    field, _, k1 = k1_at(params, bcs, grid, C, state, what)
+    sym_row = {"launches_sym": launches["dem_substep"],
+               **{f"{k}_sym": v for k, v in k1.items()}}
+    del field
+    print(f"{what}: rebin {rebin_ms(grid, C, state):.4f} ms")
+
+    params, bcs, grid, pos, C = bench_engine_scene("pallas", n_target)
+    what = f"pallas/xla {len(pos)} (grid {grid.dims}, C={C})"
+    state, wall, launches = run_full_width(params, bcs, grid, pos, C,
+                                           "pallas", what, card)
+    require(launches == {"dem_substep": 0, "dem_forces": 300},
+            f"{what}: launch counts {launches}")
+    row = forces_at(params, grid, to_cells(grid, C, *state), what)
+    row["launches"] = launches["dem_forces"]
+    forces_path_pieces(params, bcs, grid, C, state, what)
+    print(f"{what}: rebin {rebin_ms(grid, C, state):.4f} ms")
+    adv = make_cell_dense_advance(params, bcs, grid, capacity=C,
+                                  backend="pallas", device=DEV)
+    profile_call(f"one forces-path cycle, {what}",
+                 lambda: adv(*state, 1))
+
+    params, bcs, grid, pos, C = silo_scene(n_target)
+    what = (f"silo {len(pos)} (z to {float(pos[:, 2].max()):.4f} m, grid "
+            f"{grid.dims}, C={C})")
+    state, wall, launches = run_full_width(params, bcs, grid, pos, C,
+                                           "pallas", what, card)
+    require(launches == {"dem_substep": 0, "dem_forces": 300},
+            f"{what}: launch counts {launches}")
+    forces_at(params, grid, to_cells(grid, C, *state), what)
+    forces_path_pieces(params, bcs, grid, C, state, what)
+    print(f"{what}: rebin {rebin_ms(grid, C, state):.4f} ms")
+    return sym_row, row
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1787,6 +2378,26 @@ def main():
     kernels += mixer_main_path(card)
     mixer_large(card)
     print(f"phase 8 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 9: the forces path's kernel and the five boundary kinds
+    t0 = time.perf_counter()
+    for mode in ("frictionless", "single_step"):
+        err, ratio = forces_small(mode)
+        print(f"dem_forces vs twin, 120 particles, {mode}: max abs err "
+              f"{err:.3e} ({ratio:.3f} of its tolerance)")
+    print(f"forces path vs twins, five boundary kinds, 3 cycles x 4 "
+          f"substeps: max abs err {forces_path_three_cycles():.3e}")
+    print(f"phase 9 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 10: the sym / pencil, pallas / xla and silo scenes at 1M
+    t0 = time.perf_counter()
+    sym_row, row = dem_full_width(card)
+    kernels[0].update(sym_row)
+    kernels.append({"name": "dem_forces", "route": "cuda",
+                    "source": "chrono_tpu_torch/csrc/dem_forces.cu",
+                    "replaces": "; ".join(DEM_FORCES_REPLACES), **row,
+                    "library_ms": None})
+    print(f"phase 10 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ CUDA C++ kernel for ``sm_90a`` (sources in ``csrc/``, built on first CUDA use
 by ``ops.cuda._build``), with a plain PyTorch twin beside it that runs on CPU
 tensors.  This package never imports ``jax`` or ``chrono_tpu``.
 
-Ported so far: the granular DEM settling box (``dem.cell_dense.
-make_cell_dense_advance``), with its two kernels ``ops.cuda.dem_substep`` and
-``ops.cuda.migrate``; the WCSPH dam break (``fsi.sph.pencil.
+Ported so far: the granular DEM settling box and the other cell-dense
+backends (``dem.cell_dense.make_cell_dense_advance`` with ``backend`` flat,
+sym, pencil, pallas or xla; every wall kind of ``dem.bc`` on the forces
+path), with the kernels ``ops.cuda.dem_substep``, ``ops.cuda.migrate`` and
+``ops.cuda.dem_forces``; the WCSPH dam break (``fsi.sph.pencil.
 make_sph_advance_pencil``), with the three sweeps of
 ``ops.cuda.sph_substep``; CRM terrain alone (``fsi.crm_terrain.
 make_crm_terrain_state``, ``fsi.sph.crm_pencil.make_crm_advance_pencil``),

@@ -1,23 +1,26 @@
 """Build the port's parameter objects from the JAX package's leaves.
 
-The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``PlaneBCs`` /
-``GridSpec`` / ``SPHParams`` / ``SPHState`` / ``CRMParams`` / ``CRMState`` /
-``NSCPencilParams`` as pytrees of arrays and static fields.  A caller that
-holds them flattens each into a mapping of field name → numpy array or
-Python scalar (nested mappings for the two materials); these functions turn
-such mappings into the port's objects.  The NSC multiplier maps move γ
+The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``DEMBoundaries``
+(planes, cylinders, spheres, cones, wheels) / ``GridSpec`` / ``SPHParams`` /
+``SPHState`` / ``CRMParams`` / ``CRMState`` / ``NSCPencilParams`` as pytrees
+of arrays and static fields.  A caller that holds them flattens each into a
+mapping of field name → numpy array or Python scalar (nested mappings for
+the two materials and the wall kinds); these functions turn such mappings
+into the port's objects.  The NSC multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from chrono_tpu_torch.collision.cell_list import GridSpec
+from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
@@ -43,6 +46,8 @@ def params_from_numpy(leaves: Mapping[str, Any]) -> DEMParams:
     resistance, integrator choice) are not carried over."""
     if leaves.get("force_model", "mat_based") != "mat_based":
         raise NotImplementedError("only the mat_based force model is ported")
+    if leaves.get("rolling_mode", "none") != "none":
+        raise NotImplementedError("rolling resistance is not ported")
     return DEMParams(
         radius=_scalar(leaves["radius"]), mass=_scalar(leaves["mass"]),
         material=material_from_numpy(leaves["material"]),
@@ -53,12 +58,27 @@ def params_from_numpy(leaves: Mapping[str, Any]) -> DEMParams:
         friction_mode=str(leaves["friction_mode"]))
 
 
-def planes_from_numpy(leaves: Mapping[str, Any]) -> PlaneBCs:
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32))
+def _walls(cls, leaves: Mapping[str, Any]):
+    return cls(**{f.name: torch.tensor(np.asarray(leaves[f.name],
+                                                  np.float32))
+                  for f in fields(cls)})
 
-    return PlaneBCs(point=t(leaves["point"]), normal=t(leaves["normal"]),
-                    vel=t(leaves["vel"]))
+
+def planes_from_numpy(leaves: Mapping[str, Any]) -> PlaneBCs:
+    return _walls(PlaneBCs, leaves)
+
+
+_BC_CLASSES = {"planes": PlaneBCs, "cylinders": bc.CylinderBCs,
+               "spheres": bc.SphereBCs, "cones": bc.ConeBCs,
+               "wheels": bc.WheelBCs}
+
+
+def dem_boundaries_from_numpy(leaves: Mapping[str, Any]) -> bc.DEMBoundaries:
+    """``DEMBoundaries`` from the JAX ``DEMBoundaries`` fields: each kind a
+    mapping of its leaves (numpy arrays) or None."""
+    return bc.DEMBoundaries(**{
+        kind: None if leaves.get(kind) is None
+        else _walls(cls, leaves[kind]) for kind, cls in _BC_CLASSES.items()})
 
 
 def grid_from_numpy(leaves: Mapping[str, Any]) -> GridSpec:

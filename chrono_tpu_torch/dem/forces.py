@@ -1,9 +1,9 @@
 """Hertz–Mindlin contact forces without tangential history.
 
-Counterpart of ``chrono_tpu/dem/forces.py`` (``_pair_force``, the plane part
-of ``wall_forces``) and of the 27-neighbour pair sum of
+Counterpart of ``chrono_tpu/dem/forces.py`` (``_pair_force``,
+``_wall_reactions``, ``wall_forces``) and of the 27-neighbour pair sum of
 ``chrono_tpu/dem/cell_dense.py`` ``cell_dense_forces``.  Frictionless or
-single-step friction only (the cell-slot path keeps no per-contact history).
+single-step friction only (the cell-slot paths keep no per-contact history).
 Vectors are tuples of three component tensors, the form of the TPU kernel's
 pair function, so that no op reduces over a length-3 axis.
 
@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from chrono_tpu_torch.dem.bc import PlaneBCs, plane_contacts
+from chrono_tpu_torch.dem.bc import (
+    CONTACTS, DEMBoundaries, PlaneBCs, plane_contacts,
+)
+from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
 
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
             for dz in (-1, 0, 1)]
@@ -100,9 +103,11 @@ def cell_pair_forces(pos, vel, omega, mask, radius, kn, gn, kt, gt, mu, dt,
     return force, torque
 
 
-def wall_forces(planes: PlaneBCs, pos, vel, omega, radius, kn, gn, kt, gt,
-                mu, dt, friction: bool):
-    """Dense particle × plane pass on (3, M) planes → force, torque (3, M)."""
+def plane_wall_forces(planes: PlaneBCs, pos, vel, omega, radius, kn, gn,
+                      kt, gt, mu, dt, friction: bool):
+    """Dense particle × plane pass on (3, M) planes → force, torque (3, M),
+    with the caller's coefficients: the wall term of the fused substep
+    (kernel K1), which caps wall friction at the wall material's μ."""
     gap, n_into, wall_v = plane_contacts(planes, pos.T, radius)   # (M, B)
     nh = (-n_into).unbind(-1)            # from the particle toward the wall
     delta = torch.clamp(-gap, min=0.0)
@@ -114,3 +119,48 @@ def wall_forces(planes: PlaneBCs, pos, vel, omega, radius, kn, gn, kt, gt,
     tq = _cross(nh, pf)
     return (torch.stack([f.sum(-1) for f in pf]),
             torch.stack([(arm * t).sum(-1) for t in tq]))
+
+
+def wall_forces(params: DEMParams, bcs: DEMBoundaries, pos, vel, omega):
+    """Dense particle × wall pass over every kind of ``bcs``.
+
+    pos, vel, omega: (N, 3).  Returns force and torque (N, 3) on the
+    particles and the per-wall reactions ``(react_f, react_tau)``, each
+    (B, 3): minus the summed contact forces, and minus their moments about
+    the origin taken at the contact points (shift to a body centre c by
+    τ_c = τ_0 − c × F).  The Hertz coefficients are the wall material's
+    (m* = m, r* = r) while friction is capped at ``params.material.mu_s``,
+    as in the JAX ``wall_forces`` whose pair function serves pairs and
+    walls alike (the fused substep caps at the wall material's μ instead).
+    """
+    if params.friction_mode not in ("frictionless", "single_step"):
+        raise ValueError("wall_forces keeps no tangential history: "
+                         f"friction_mode {params.friction_mode!r}")
+    r = params.radius
+    kinds = bcs.kinds()
+    if not kinds:
+        z = torch.zeros_like(pos)
+        zb = pos.new_zeros((0, 3))
+        return z, z, (zb, zb)
+    parts = [CONTACTS[k](getattr(bcs, k), pos, r) for k in kinds]
+    gap = torch.cat([p.gap for p in parts], dim=1)             # (N, B)
+    n_into = torch.cat([p.normal for p in parts], dim=1)       # (N, B, 3)
+    wall_v = torch.cat([p.vel for p in parts], dim=1)
+    kn, gn, kt, gt = hertz_coefficients(params.wall_material, params.mass, r)
+
+    overlap = -gap
+    nh = (-n_into).unbind(-1)          # from the particle toward the wall
+    arm = r - 0.5 * overlap
+    cr = _cross([w[:, None] for w in omega.unbind(-1)], nh)
+    vr = [wall_v[..., a] - vel[:, None, a] - arm * cr[a] for a in range(3)]
+    pf = _pair_force(nh, torch.clamp(overlap, min=0.0), vr, overlap > 0, kn,
+                     gn, kt, gt, params.material.mu_s, params.dt,
+                     params.friction_mode == "single_step")
+    tq = _cross(nh, pf)
+    force = torch.stack([f.sum(-1) for f in pf], dim=-1)
+    torque = torch.stack([(arm * t).sum(-1) for t in tq], dim=-1)
+    # reactions: contact points p + arm·n̂, moments about the origin
+    p_c = [pos[:, None, a] + arm * nh[a] for a in range(3)]
+    react_f = -torch.stack([f.sum(0) for f in pf], dim=-1)
+    react_tau = -torch.stack([t.sum(0) for t in _cross(p_c, pf)], dim=-1)
+    return force, torque, (react_f, react_tau)

@@ -2,11 +2,14 @@
 
 Replaces the TPU kernel ``chrono_tpu/ops/pallas/dem_flat_kernel.py``
 ``dem_flat_substep_pallas`` and the ``flatlane_kernel.py`` ``sym_sweep_flat``
-sweep it runs on.  The CUDA kernel (``csrc/dem_substep.cu``) runs one thread
-per slot over the 27 neighbour cells and sums each pair from both sides, so
-it needs no atomics.  Its plain twin, :func:`dem_substep_plain`, is the
-vectorised 27-neighbour form of the JAX ``cell_dense_forces`` plus the wall
-and Euler tail.  Planes: pos xyz, vel xyz, omega xyz, mask.
+sweep it runs on, and computes the substep of ``dem_sym_kernel.py``
+``dem_sym_substep_pallas`` and ``dem_pencil_kernel.py``
+``dem_pencil_substep_pallas`` (the same substep in other TPU layouts).  The
+CUDA kernel (``csrc/dem_substep.cu``) runs one thread per slot over the 27
+neighbour cells (the pair loop of ``csrc/dem_pairs.cuh``) and sums each pair
+from both sides, so it needs no atomics.  Its plain twin,
+:func:`dem_substep_plain`, is the vectorised 27-neighbour form of the JAX
+``cell_dense_forces`` plus the wall and Euler tail.  Planes: pos xyz, vel xyz, omega xyz, mask.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Optional
 import torch
 
 from chrono_tpu_torch.dem.bc import PlaneBCs
-from chrono_tpu_torch.dem.forces import cell_pair_forces, wall_forces
+from chrono_tpu_torch.dem.forces import cell_pair_forces, plane_wall_forces
 from chrono_tpu_torch.ops.cuda import _build
 
 N_FEAT = 10
@@ -65,10 +68,11 @@ def dem_substep_plain(feat: torch.Tensor, c: SubstepCoefs) -> torch.Tensor:
                                      c.radius, c.kn, c.gn, c.kt, c.gt, c.mu,
                                      c.dt, c.friction)
     if c.planes is not None:
-        fw, tw = wall_forces(c.planes.to(feat.device), pos.reshape(3, -1),
-                             vel.reshape(3, -1), omega.reshape(3, -1),
-                             c.radius, c.knw, c.gnw, c.ktw, c.gtw, c.muw,
-                             c.dt, c.friction)
+        fw, tw = plane_wall_forces(c.planes.to(feat.device),
+                                   pos.reshape(3, -1), vel.reshape(3, -1),
+                                   omega.reshape(3, -1), c.radius, c.knw,
+                                   c.gnw, c.ktw, c.gtw, c.muw, c.dt,
+                                   c.friction)
         force = force + fw.reshape(force.shape)
         torque = torque + tw.reshape(torque.shape)
     m = grid[9]

@@ -18,13 +18,16 @@ import pytest
 import torch
 
 import chrono_tpu_torch
-from chrono_tpu_torch.dem.cell_dense import substep_coefs, to_cells
+from chrono_tpu_torch.dem.cell_dense import (
+    pair_coefs, substep_coefs, to_cells,
+)
 from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import nsc_detect as nd
 from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
+from chrono_tpu_torch.ops.cuda.dem_forces import dem_forces
 from chrono_tpu_torch.ops.cuda.dem_substep import dem_substep
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
 
@@ -58,9 +61,9 @@ def test_package_imports_without_building(monkeypatch):
     assert probe.stdout.strip() == "[]"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "dem_substep.cu", "migrate.cu", "sph_substep.cu", "crm_substep.cu",
-        "crm_outer.cu", "nsc_detect.cu", "nsc_sweep.cu"}
+        "crm_outer.cu", "nsc_detect.cu", "nsc_sweep.cu", "dem_forces.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
-        "cell_pairs.cuh", "crm_sweeps.cuh", "nsc_pair.cuh"}
+        "cell_pairs.cuh", "crm_sweeps.cuh", "nsc_pair.cuh", "dem_pairs.cuh"}
 
     def no_build(name):
         raise AssertionError(f"built {name} for a CPU tensor")
@@ -71,13 +74,18 @@ def test_package_imports_without_building(monkeypatch):
     z = torch.zeros(pos.shape)
     field = to_cells(grid, C, torch.from_numpy(pos), z, z)
     out = torch.empty_like(field.feat)
-    launches = dem_substep.launches, dem_migrate.launches
+    launches = (dem_substep.launches, dem_migrate.launches,
+                dem_forces.launches)
     dem_substep(field.feat, out, substep_coefs(params, bcs, grid, C))
     count = torch.empty(grid.n_cells, dtype=torch.int32)
     dem_migrate(out, field.ids, torch.empty_like(out),
                 torch.empty_like(field.ids), count, grid)
-    assert (dem_substep.launches, dem_migrate.launches) == launches
+    forces = torch.empty((6,) + tuple(field.feat.shape[1:]))
+    dem_forces(field.feat, forces, pair_coefs(params, grid, C))
+    assert (dem_substep.launches, dem_migrate.launches,
+            dem_forces.launches) == launches
     assert int(count.sum()) == len(pos)
+    assert float(forces[0:3].abs().max()) > 0
 
 
 def test_other_devices_raise():
@@ -93,6 +101,9 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         dem_migrate(feat, ids, torch.empty_like(feat), torch.empty_like(ids),
                     count, grid)
+    with pytest.raises(ValueError):
+        dem_forces(feat, torch.empty((6, n, C), device="meta"),
+                   pair_coefs(params, grid, C))
 
 
 @pytest.mark.cuda
@@ -107,6 +118,29 @@ def test_substep_kernel_matches_twin(card, friction_mode):
 @pytest.mark.cuda
 def test_substep_kernel_matches_twin_overlapping(card):
     assert np.isfinite(card.k1_one_substep(*card.overlap_scene(n_side=20)))
+
+
+@pytest.mark.cuda
+def test_forces_kernel_matches_twin(card):
+    """``dem_forces`` against its twin on the 120-particle box (both
+    friction modes) and the forces path on the five-kind scene, card
+    against CPU, as phase 9 of chip_smoke.py checks them; and its input
+    checks."""
+    n = dem_forces.launches
+    for mode in ("frictionless", "single_step"):
+        assert card.forces_small(mode)[1] <= 1.0
+    assert card.forces_path_three_cycles() < 1e-3
+    assert dem_forces.launches > n
+    params, bcs, grid, pos, C = card.small_scene(7)
+    z = torch.zeros(pos.shape, device="cuda")
+    feat = to_cells(grid, C, torch.as_tensor(pos, device="cuda"), z, z).feat
+    pair = pair_coefs(params, grid, C)
+    with pytest.raises(ValueError):               # out overlaps feat
+        dem_forces(feat, feat[:6], pair)
+    with pytest.raises(ValueError):               # wrong dtype
+        dem_forces(feat.double(), torch.empty_like(feat[:6]), pair)
+    with pytest.raises(ValueError):               # wrong plane count
+        dem_forces(feat, torch.empty_like(feat), pair)
 
 
 @pytest.mark.cuda
