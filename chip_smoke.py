@@ -16,8 +16,10 @@ once) and then runs:
    through ``make_cell_dense_advance``, checked for overflow, loss, finite
    values, momentum (the scene has no wall contact, so the mean velocity is
    pure free fall) and that every kernel launch of the run was counted;
-   then each kernel against its twin at the main path's shapes, timed with
-   CUDA events;
+   then K1 against the float64 pair reference with two planted faults, K2
+   against its twin, each timed with CUDA events at the main path's shapes
+   (K1 on the cell-sorted rows it walks: M particles, its launch grid, its
+   occupied candidates a particle and its bound from those rows);
 3. SPH parity on the card: each of the three WCSPH sweeps (``sph_adami``,
    ``sph_momentum``, ``sph_continuity_drift``) against its twin on the mini
    dam of tests/test_sph_pencil.py (756 markers), for both viscosity
@@ -76,9 +78,10 @@ once) and then runs:
    same spheres inside a z-cylinder over a cone around a spherical
    obstacle through ``pallas``; each checked for overflow, finite values,
    no wall touched and free-fall momentum, every kernel launch counted;
-   then K1 or ``dem_forces`` against its twin and timed at those shapes,
-   the forces path's wall pass and Euler step timed, one sort rebin timed,
-   and one forces-path cycle traced with ``torch.profiler``.
+   then K1 or ``dem_forces`` against the float64 pair reference with two
+   planted faults and timed on the scene's rows, beside its row twin; the
+   forces path's wall pass and Euler step on the rows timed, one sort
+   rebin timed, and one forces-path cycle traced with ``torch.profiler``.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -103,8 +106,8 @@ from chrono_tpu_torch.dem.bc import (
     CONTACTS, DEMBoundaries, box_boundaries, n_walls,
 )
 from chrono_tpu_torch.dem.cell_dense import (
-    forces_substep, from_cells, integrate_slots, make_cell_dense_advance,
-    pair_coefs, slot_wall_forces, substep_coefs, to_cells, valid_slots,
+    forces_substep, from_cells, integrate_rows, make_cell_dense_advance,
+    pair_coefs, substep_coefs, to_cells, to_rows, wall_rows,
 )
 from chrono_tpu_torch.dem.forces import _cross, _pair_force
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
@@ -121,9 +124,12 @@ from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
-from chrono_tpu_torch.ops.cuda.dem_forces import dem_forces, dem_forces_plain
+from chrono_tpu_torch.dem.rows import neighbour_runs, rows_from_slots
+from chrono_tpu_torch.ops.cuda.dem_forces import (
+    dem_forces, dem_forces_plain, dem_forces_rows, dem_forces_rows_plain,
+)
 from chrono_tpu_torch.ops.cuda.dem_substep import (
-    dem_substep, dem_substep_plain,
+    dem_substep, dem_substep_plain, dem_substep_rows, dem_substep_rows_plain,
 )
 from chrono_tpu_torch.ops.cuda import nsc_detect as nd
 from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
@@ -570,11 +576,24 @@ def k1_reference(feat, coefs):
     return ref, tol, overlaps
 
 
+def row_stats(rows, dims, n_cells):
+    """M, the launch grid, the occupied candidates per particle that the
+    nine runs hold, and the least bytes a row pass must move besides its
+    per-particle state: the (start, count) table."""
+    m = int((rows.cell >= 0).sum())
+    runs = neighbour_runs(rows.cell, rows.table, dims)
+    cand = sum(int((hi - lo).sum()) for lo, hi in runs) - m
+    blocks = (rows.n_rows + 255) // 256
+    return {"M": m, "grid": f"{blocks} x 256",
+            "candidates_per_particle": cand / max(m, 1),
+            "table_bytes": 8 * n_cells}
+
+
 def k1_at(params, bcs, grid, C, state, what, plain=True):
     """K1 against the float64 pair reference on the binned ``state`` (no
     particle may touch a wall), two planted faults that must fail that
-    tolerance, K1's time (CUDA events), its twin's and its bound:
-    ``(field, K1's output, row)``."""
+    tolerance, K1's time on the state's rows (CUDA events), its twin's
+    and its bound: ``(field, K1's output as slot planes, row)``."""
     field = to_cells(grid, C, *state)
     feat = field.feat
     coefs = substep_coefs(params, bcs, grid, C)
@@ -590,21 +609,25 @@ def k1_at(params, bcs, grid, C, state, what, plain=True):
                ("mask", slice(9, 10)))}
     require(ratio <= 1.0, f"K1, {what}: {planes} of its tolerance")
     faults = {}
+    bad_out = torch.empty_like(feat)
     for name, bad in planted_faults(coefs, overlaps).items():
-        dem_substep(feat, out, bad)
-        faults[name] = tol_ratio(out, ref, tol)[1]
+        dem_substep(feat, bad_out, bad)
+        faults[name] = tol_ratio(bad_out, ref, tol)[1]
         require(faults[name] > 1.0, f"K1, {what}: the planted fault {name} "
                 f"passes ({faults[name]:.3f} of the tolerance)")
-    del ref, tol
-    dem_substep(feat, out, coefs)
-    ms = cuda_ms(lambda: dem_substep(feat, out, coefs), 20)
-    plain_ms = cuda_ms(lambda: dem_substep_plain(feat, coefs), 3) \
+    del ref, tol, bad_out
+    rows, _ = rows_from_slots(feat)
+    nxt = torch.empty_like(rows.state)
+    ms = cuda_ms(lambda: dem_substep_rows(rows, nxt, coefs), 20)
+    plain_ms = cuda_ms(lambda: dem_substep_rows_plain(rows, coefs), 3) \
         if plain else None
+    st = row_stats(rows, grid.dims, grid.n_cells)
     n_slots = feat.shape[1] * C
-    n_valid = int((feat[9] > 0.5).sum())
     contacts = len(overlaps)
-    b = bound(2 * 10 * n_slots * 4, contacts * DEM_OPS_PER_CONTACT
-              + n_valid * DEM_OPS_PER_PARTICLE)
+    # the occupied particles' 9 floats in and out, and the per-cell table
+    b = bound(2 * 9 * 4 * st["M"] + st["table_bytes"],
+              contacts * DEM_OPS_PER_CONTACT
+              + st["M"] * DEM_OPS_PER_PARTICLE)
     plain_txt = f" (plain twin {plain_ms:.4f} ms)" if plain else ""
     print(f"K1, {what}: max abs err {err:.3e} against the float64 pair "
           "reference (of its tolerance: "
@@ -613,11 +636,13 @@ def k1_at(params, bcs, grid, C, state, what, plain=True):
           + ", ".join(f"{k} {v:.2f}" for k, v in faults.items())
           + f" of it), {ms:.4f} ms per launch{plain_txt}, {contacts} "
           f"contacts (both sides, median overlap "
-          f"{float(overlaps.median()):.3e} m) among {n_valid} particles in "
-          f"{n_slots} slots, bound {b[0]:.4f} ms by {b[1]}")
+          f"{float(overlaps.median()):.3e} m) among M = {st['M']} "
+          f"particles in {n_slots} slots, grid {st['grid']}, "
+          f"{st['candidates_per_particle']:.2f} occupied candidates a "
+          f"particle, bound {b[0]:.4f} ms by {b[1]}")
     return field, out, {"max_abs_err": err, "err_over_tol": ratio,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-                        "bound_by": b[1]}
+                        "bound_by": b[1], "M": st["M"]}
 
 
 def main_path(card):
@@ -629,7 +654,7 @@ def main_path(card):
     adv = make_cell_dense_advance(params, bcs, grid, capacity=C,
                                   migrate=True, device=DEV)
     z = np.zeros_like(pos)
-    dem_substep.launches = dem_migrate.launches = 0
+    dem_substep_rows.launches = dem_migrate.launches = 0
     p, v, o, ovf = adv(pos, z, z, 1)                       # warm-up cycle
     require(int(ovf) == 0, f"warm-up overflow {int(ovf)}")
     torch.cuda.synchronize()
@@ -637,7 +662,7 @@ def main_path(card):
     p, v, o, ovf = adv(p, v, o, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dem_substep": dem_substep.launches,
+    launches = {"dem_substep": dem_substep_rows.launches,
                 "dem_migrate": dem_migrate.launches}
     require(int(ovf) == 0, f"overflow or loss {int(ovf)}")
     require(all(bool(torch.isfinite(a).all()) for a in (p, v, o)),
@@ -2114,7 +2139,7 @@ def run_full_width(params, bcs, grid, pos, C, backend, what, card):
     adv = make_cell_dense_advance(params, bcs, grid, capacity=C,
                                   backend=backend, device=DEV)
     z = np.zeros_like(pos)
-    dem_substep.launches = dem_forces.launches = 0
+    dem_substep_rows.launches = dem_forces_rows.launches = 0
     p, v, o, ovf = adv(pos, z, z, 1)
     require(int(ovf) == 0, f"{what}: warm-up overflow {int(ovf)}")
     torch.cuda.synchronize()
@@ -2122,8 +2147,8 @@ def run_full_width(params, bcs, grid, pos, C, backend, what, card):
     p, v, o, ovf2 = adv(p, v, o, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dem_substep": dem_substep.launches,
-                "dem_forces": dem_forces.launches}
+    launches = {"dem_substep": dem_substep_rows.launches,
+                "dem_forces": dem_forces_rows.launches}
     t_sim = 3 * params.rebuild_every * params.dt
     gaps, mean_v = check_full_width(params, bcs, pos, p, v, o, ovf2, t_sim,
                                     what)
@@ -2139,10 +2164,11 @@ def run_full_width(params, bcs, grid, pos, C, backend, what, card):
 
 
 def rebin_ms(grid, C, state):
-    """One sort rebin: bin by ``to_cells`` and unbin by ``from_cells``."""
+    """One sort rebin: bin into rows by ``to_rows`` and unbin through each
+    particle's row."""
     def rebin():
-        field = to_cells(grid, C, *state)
-        from_cells(field, field.feat[0:3], field.feat[3:6], field.feat[6:9])
+        rows, prow, _ = to_rows(grid, C, *state)
+        return [rows.state[k, prow, :3] for k in range(3)]
 
     return cuda_ms(rebin, 5)
 
@@ -2150,7 +2176,8 @@ def rebin_ms(grid, C, state):
 def forces_at(params, grid, field, what):
     """``dem_forces`` on a binned field against the float64 pair reference
     at the tolerance float32 supports, two planted faults that must fail
-    it, its time, its twin's and its bound."""
+    it, its time on the field's rows, its twin's and
+    its bound."""
     feat = field.feat
     C = feat.shape[2]
     pair = pair_coefs(params, grid, C)
@@ -2169,26 +2196,31 @@ def forces_at(params, grid, field, what):
         faults[name] = tol_ratio(out, ref, tol)[1]
         require(faults[name] > 1.0, f"dem_forces, {what}: the planted fault "
                 f"{name} passes ({faults[name]:.3f} of the tolerance)")
-    del ref, tol
-    ms = cuda_ms(lambda: dem_forces(feat, out, pair), 20)
-    plain_ms = cuda_ms(lambda: dem_forces_plain(feat, pair), 2)
+    del ref, tol, out
+    rows, _ = rows_from_slots(feat)
+    f = rows.state.new_empty((2, rows.n_rows, 4))
+    ms = cuda_ms(lambda: dem_forces_rows(rows, f, pair), 20)
+    plain_ms = cuda_ms(lambda: dem_forces_rows_plain(rows, pair), 2)
+    st = row_stats(rows, grid.dims, grid.n_cells)
     n_slots = feat.shape[1] * C
-    n_valid = int((feat[9] > 0.5).sum())
     contacts = len(overlaps)
-    # every slot's mask read and its six planes written; the nine position,
-    # velocity and spin planes read for the occupied slots only
-    b = bound((7 * n_slots + 9 * n_valid) * 4, contacts * DEM_OPS_PER_CONTACT)
+    # the occupied particles' 9 floats in and 6 out, and the per-cell table
+    b = bound((9 + 6) * 4 * st["M"] + st["table_bytes"],
+              contacts * DEM_OPS_PER_CONTACT)
     print(f"dem_forces, {what}: max abs err {err:.3e} N or N·m against the "
           "float64 pair reference (of its tolerance: "
           + ", ".join(f"{k} {v:.4f}" for k, v in planes.items())
           + "; planted faults "
           + ", ".join(f"{k} {v:.2f}" for k, v in faults.items())
           + f" of it), {ms:.4f} ms per launch (plain twin {plain_ms:.4f} "
-          f"ms, {contacts} contacts, median overlap "
-          f"{float(overlaps.median()):.3e} m, {n_valid} particles in "
-          f"{n_slots} slots), bound {b[0]:.4f} ms by {b[1]}")
+          f"ms, {contacts} contacts, "
+          f"median overlap {float(overlaps.median()):.3e} m, M = {st['M']} "
+          f"particles in {n_slots} slots, grid {st['grid']}, "
+          f"{st['candidates_per_particle']:.2f} occupied candidates a "
+          f"particle), bound {b[0]:.4f} ms by {b[1]}")
     return {"max_abs_err": err, "err_over_tol": ratio, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1]}
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "M": st["M"]}
 
 
 def device_ms(fn, reps=20, kernel=None, launches=0):
@@ -2205,29 +2237,30 @@ def device_ms(fn, reps=20, kernel=None, launches=0):
 
 
 def forces_path_pieces(params, bcs, grid, C, state, what):
-    """Device ms of one forces-path substep and of its parts on the binned
+    """Device ms of one forces-path substep and of its parts on the rows of
     ``state`` (profiler device time over 20 calls of each): the pair
-    kernel, the wall pass on the occupied slots, the Euler step, and the
-    whole ``forces_substep`` with its gathers and scatter; beside it the
-    whole substep's time by CUDA events around 10 back-to-back calls."""
-    field = to_cells(grid, C, *state)
-    feat = field.feat.clone()
-    sel = valid_slots(feat)
+    kernel, the wall pass, the Euler step, and the whole
+    ``forces_substep``; beside it the whole substep's time by CUDA events
+    around 10 back-to-back calls.  The substep and the Euler step run on a
+    copy of the rows, in place."""
+    rows = to_rows(grid, C, *state)[0]
     pair = pair_coefs(params, grid, C)
     bcs_dev = bcs.to(DEV)
-    out = feat.new_empty((6,) + tuple(feat.shape[1:]))
-    x = feat.view(10, -1)[:, sel]
-    f = out.view(6, -1)[:, sel]
+    out = rows.state.new_empty((2, rows.n_rows, 4))
+    dem_forces_rows(rows, out, pair)
+    work = replace(rows, state=rows.state.clone())
+    f, t = out[0, :, :3], out[1, :, :3]
 
     def substep():
-        forces_substep(params, bcs_dev, pair, feat, sel, out)
+        forces_substep(params, bcs_dev, pair, work, out)
 
     k = ("dem_forces_kernel", 1)
-    ms = {"dem_forces": device_ms(lambda: dem_forces(feat, out, pair), 20,
-                                  *k),
-          "wall pass": device_ms(lambda: slot_wall_forces(params, bcs_dev,
-                                                          x)),
-          "integration": device_ms(lambda: integrate_slots(params, x, f)),
+    ms = {"dem_forces": device_ms(lambda: dem_forces_rows(rows, out, pair),
+                                  20, *k),
+          "wall pass": device_ms(lambda: wall_rows(params, bcs_dev,
+                                                   rows.state)),
+          "integration": device_ms(lambda: integrate_rows(params, work.state,
+                                                          f, t)),
           "substep": device_ms(substep, 20, *k)}
     events = cuda_ms(substep, 10)
     rest = ms["substep"] - ms["dem_forces"] - ms["wall pass"] \
@@ -2235,8 +2268,8 @@ def forces_path_pieces(params, bcs, grid, C, state, what):
     print(f"forces path, {what}: per substep {ms['substep']:.4f} ms of "
           f"device time ({events:.4f} ms by CUDA events) = dem_forces "
           f"{ms['dem_forces']:.4f} + wall pass {ms['wall pass']:.4f} "
-          f"({n_walls(bcs)} walls x {len(sel)} particles) + integration "
-          f"{ms['integration']:.4f} + gathers and scatter {rest:.4f}; wall "
+          f"({n_walls(bcs)} walls x {rows.n_rows} rows) + integration "
+          f"{ms['integration']:.4f} + sums of forces {rest:.4f}; wall "
           f"pass {ms['wall pass'] / ms['substep']:.3f} and integration "
           f"{ms['integration'] / ms['substep']:.3f} of the substep's "
           "device time")

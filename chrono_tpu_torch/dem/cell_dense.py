@@ -8,20 +8,24 @@ and ``pallas_pencil_forces``, ``make_cell_dense_advance``).  Particles live
 in a slot-major structure of arrays: a (10, n_cells, C) float32 tensor of
 planes (pos xyz, vel xyz, omega xyz, mask) and a (n_cells, C) int32 tensor
 of particle ids (-1 for an empty slot), with cell id ``(i·ny + j)·nz + k``.
-Two kinds of substep:
+A cycle's substeps run on cell-sorted rows (``dem/rows.py``): the
+occupied particles in slot order with a per-cell (start, count) table, laid
+out once per rebin.  Two kinds of substep:
 
 * fused (backends ``"flat"``, ``"sym"``, ``"pencil"``): kernel K1
   (``ops.cuda.dem_substep``) computes pairs, plane walls and the Euler step
-  in one launch;
+  in one launch, between two row buffers;
 * forces path (backends ``"pallas"``, ``"xla"``): kernel ``dem_forces``
   (``ops.cuda.dem_forces``) gives the pair forces and torques alone, then
   the general wall pass (``dem.forces.wall_forces``, any boundary kind) and
-  the masked semi-implicit Euler step run as tensor code.
+  the semi-implicit Euler step run as tensor code on the rows, in place.
 
-A cycle is ``rebuild_every`` substeps followed by a rebin: a full sort, or
-for ``"flat"`` with ``migrate=True`` the one-cell-per-axis migration (kernel
-K2, ``ops.cuda.migrate``).  Binning, unbinning and the cycle loop are plain
-PyTorch on every device.
+A cycle is ``rebuild_every`` substeps followed by a rebin: a full sort
+(:func:`to_rows` straight to rows, unbinned through each particle's row),
+or for ``"flat"`` with ``migrate=True`` the one-cell-per-axis migration
+(kernel K2, ``ops.cuda.migrate``) on slot planes, whose output and landing
+counts give the next cycle's rows.  Binning, unbinning and the cycle loop
+are plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -34,9 +38,15 @@ from chrono_tpu_torch.collision.cell_list import GridSpec, cell_index
 from chrono_tpu_torch.dem.bc import DEMBoundaries
 from chrono_tpu_torch.dem.forces import wall_forces
 from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
-from chrono_tpu_torch.ops.cuda.dem_forces import PairCoefs, dem_forces
+from chrono_tpu_torch.dem.rows import (
+    CellRows, pack_rows, rows_from_prefix_slots, rows_of_cells,
+    rows_to_planes,
+)
+from chrono_tpu_torch.ops.cuda.dem_forces import (
+    PairCoefs, dem_forces, dem_forces_rows,
+)
 from chrono_tpu_torch.ops.cuda.dem_substep import (
-    MAX_WALLS, SubstepCoefs, dem_substep,
+    MAX_WALLS, SubstepCoefs, dem_substep_rows,
 )
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
 
@@ -53,15 +63,11 @@ class CellField:
     overflow: torch.Tensor  # () int32, max occupancy − C (0 when it fits)
 
 
-def to_cells(grid: GridSpec, capacity: int, pos, vel, omega) -> CellField:
-    """Bin particles into cell slots (stable sort + rank in cell).
-
-    Particles keep their input order inside a cell.  A cell holding more
-    than ``capacity`` particles keeps the first ``capacity`` and reports the
-    excess in ``overflow``.
-    """
+def _sort_bin(grid: GridSpec, capacity: int, pos):
+    """The stable sort of particles by cell: ``(order, cell of each sorted
+    particle, its rank in the cell, overflow)``, int64 but the overflow
+    (() int32, max occupancy − C, 0 when it fits)."""
     n = pos.shape[0]
-    n_cells = grid.n_cells
     ids = cell_index(grid, pos)
     order = torch.argsort(ids, stable=True)
     ids_sorted = ids[order]
@@ -69,6 +75,18 @@ def to_cells(grid: GridSpec, capacity: int, pos, vel, omega) -> CellField:
     first = torch.searchsorted(ids_sorted, ids_sorted)
     rank = torch.arange(n, device=pos.device) - first
     overflow = torch.clamp(rank.max() + 1 - capacity, min=0).to(torch.int32)
+    return order, ids_sorted, rank, overflow
+
+
+def to_cells(grid: GridSpec, capacity: int, pos, vel, omega) -> CellField:
+    """Bin particles into cell slots (stable sort + rank in cell).
+
+    Particles keep their input order inside a cell.  A cell holding more
+    than ``capacity`` particles keeps the first ``capacity`` and reports the
+    excess in ``overflow``.
+    """
+    n_cells = grid.n_cells
+    order, ids_sorted, rank, overflow = _sort_bin(grid, capacity, pos)
     flat = ids_sorted * capacity + torch.clamp(rank, max=capacity - 1)
     perm = torch.empty_like(flat).scatter_(0, order, flat)
     keep = rank < capacity
@@ -81,6 +99,27 @@ def to_cells(grid: GridSpec, capacity: int, pos, vel, omega) -> CellField:
     return CellField(feat=feat.reshape(10, n_cells, capacity),
                      ids=slot_ids.reshape(n_cells, capacity), perm=perm,
                      overflow=overflow)
+
+
+def to_rows(grid: GridSpec, capacity: int, pos, vel, omega):
+    """Bin particles straight into cell-sorted rows, holding the particles
+    ``to_cells`` puts in slots, in its slot order, with no host sync:
+    ``(CellRows, prow, overflow)``.  ``prow`` (N,) int64 is each particle's
+    row; a particle past a full cell's capacity gets the row of the cell's
+    last slot, as ``from_cells`` gives it that slot.  R = N + 1 rows."""
+    n = pos.shape[0]
+    order, ids_sorted, rank, overflow = _sort_bin(grid, capacity, pos)
+    cells = torch.arange(grid.n_cells + 1, device=pos.device)
+    first = torch.searchsorted(ids_sorted, cells)         # sorted index
+    count = torch.clamp(first[1:] - first[:-1], max=capacity)
+    cell, row_rank, start, table = rows_of_cells(count, n + 1)
+    live = cell >= 0
+    cell_c = torch.clamp(cell, min=0)
+    src = order[torch.where(live, first[cell_c] + row_rank, 0)]
+    rows = pack_rows(pos[src], vel[src], omega[src], cell, table, live)
+    row_sorted = start[ids_sorted] + torch.clamp(rank, max=capacity - 1)
+    prow = torch.empty_like(row_sorted).scatter_(0, order, row_sorted)
+    return rows, prow, overflow
 
 
 def from_cells(field: CellField, *arrays):
@@ -145,44 +184,37 @@ def substep_coefs(params: DEMParams, bcs: DEMBoundaries, grid: GridSpec,
                         **wall_static_coefs(params))
 
 
-def valid_slots(feat: torch.Tensor) -> torch.Tensor:
-    """Flat indices cell·C + slot of the occupied slots, int64."""
-    return torch.nonzero(feat[_MASK].reshape(-1) > 0.5).squeeze(1)
+def wall_rows(params: DEMParams, bcs: DEMBoundaries,
+              state: torch.Tensor):
+    """The general wall pass on (3, R, 4) rows: force and torque, each
+    (R, 3)."""
+    f, t, _ = wall_forces(params, bcs, state[0, :, :3], state[1, :, :3],
+                          state[2, :, :3])
+    return f, t
 
 
-def slot_wall_forces(params: DEMParams, bcs: DEMBoundaries,
-                     x: torch.Tensor) -> torch.Tensor:
-    """The general wall pass on gathered slots: x (10, M) → force xyz and
-    torque xyz (6, M)."""
-    f, t, _ = wall_forces(params, bcs, x[0:3].T, x[3:6].T, x[6:9].T)
-    return torch.cat([f.T, t.T])
-
-
-def integrate_slots(params: DEMParams, x: torch.Tensor,
-                    f: torch.Tensor) -> torch.Tensor:
-    """Semi-implicit Euler of gathered slots: x (10, M) and total force and
-    torque f (6, M) → new pos, vel, omega (9, M)."""
-    g = torch.tensor(params.gravity, dtype=x.dtype,
-                     device=x.device)[:, None]
-    vel = x[3:6] + params.dt * (f[0:3] / params.mass + g)
-    omega = x[6:9] + params.dt * (f[3:6] / params.inertia)
-    return torch.cat([x[0:3] + params.dt * vel, vel, omega])
+def integrate_rows(params: DEMParams, state: torch.Tensor,
+                   force: torch.Tensor, torque: torch.Tensor) -> None:
+    """Semi-implicit Euler of (3, R, 4) rows in place, from the total force
+    and torque (each (R, 3)): v += dt (F/m + g), x += dt v, ω += dt T/I."""
+    g = torch.tensor(params.gravity, dtype=state.dtype, device=state.device)
+    state[1, :, :3] += params.dt * (force / params.mass + g)
+    state[0, :, :3] += params.dt * state[1, :, :3]
+    state[2, :, :3] += params.dt * (torque / params.inertia)
 
 
 def forces_substep(params: DEMParams, bcs: DEMBoundaries, pair: PairCoefs,
-                   feat: torch.Tensor, sel: torch.Tensor,
-                   out: torch.Tensor) -> None:
-    """One substep of the forces path, in place on ``feat``: the pair pass
-    into ``out`` (6, n_cells, C), then on the occupied slots ``sel`` the
-    wall pass, acc = (F + F_w)/m + g, α = (T + T_w)/I and the Euler step.
-    Empty slots keep their values, as the JAX backends' mask keeps them."""
-    dem_forces(feat, out, pair)
-    flat = feat.view(10, -1)
-    x = flat[:, sel]
-    f = out.view(6, -1)[:, sel]
+                   rows: CellRows, out: torch.Tensor) -> None:
+    """One substep of the forces path on the rows, in place: the pair pass
+    into ``out`` (2, R, 4), then the wall pass, acc = (F + F_w)/m + g,
+    α = (T + T_w)/I and the Euler step.  Dead rows are stepped too and
+    never read."""
+    dem_forces_rows(rows, out, pair)
+    force, torque = out[0, :, :3], out[1, :, :3]
     if bcs.kinds():
-        f = f + slot_wall_forces(params, bcs, x)
-    flat[0:9, sel] = integrate_slots(params, x, f)
+        fw, tw = wall_rows(params, bcs, rows.state)
+        force, torque = force + fw, torque + tw
+    integrate_rows(params, rows.state, force, torque)
 
 
 BACKENDS = ("flat", "sym", "pencil", "pallas", "xla")
@@ -230,33 +262,30 @@ def make_cell_dense_advance(params: DEMParams, bcs: DEMBoundaries,
         pair = pair_coefs(params, grid, capacity)
         bcs_dev = bcs.to(device)
 
-        def cycle_substeps(feat):
-            sel = valid_slots(feat)
-            out = feat.new_empty((6,) + tuple(feat.shape[1:]))
+        def substeps(rows: CellRows):
+            out = rows.state.new_empty((2, rows.n_rows, 4))
             for _ in range(steps):
-                forces_substep(params, bcs_dev, pair, feat, sel, out)
-            return feat
+                forces_substep(params, bcs_dev, pair, rows, out)
+            return rows.state
     else:
         coefs = substep_coefs(params, bcs, grid, capacity)
 
-        def substeps(feat, spare):
+        def substeps(rows: CellRows):
+            # the spare's dead rows stay zero: K1 writes live rows only
+            state, spare = rows.state, torch.zeros_like(rows.state)
             for _ in range(steps):
-                dem_substep(feat, spare, coefs)
-                feat, spare = spare, feat
-            return feat, spare
-
-        def cycle_substeps(feat):
-            return substeps(feat, torch.empty_like(feat))[0]
+                dem_substep_rows(replace(rows, state=state), spare, coefs)
+                state, spare = spare, state
+            return state
 
     def advance_sort(pos, vel, omega, n_cycles: int):
         pos, vel, omega = as_tensor(pos), as_tensor(vel), as_tensor(omega)
         ovf = torch.zeros((), dtype=torch.int32, device=device)
         for _ in range(n_cycles):
-            field = to_cells(grid, capacity, pos, vel, omega)
-            feat = cycle_substeps(field.feat)
-            pos, vel, omega = from_cells(field, feat[0:3], feat[3:6],
-                                         feat[6:9])
-            ovf = torch.maximum(ovf, field.overflow)
+            rows, prow, overflow = to_rows(grid, capacity, pos, vel, omega)
+            state = substeps(rows)
+            pos, vel, omega = (state[k, prow, :3] for k in range(3))
+            ovf = torch.maximum(ovf, overflow)
         return pos, vel, omega, ovf
 
     def advance_migrate(pos, vel, omega, n_cycles: int):
@@ -265,14 +294,20 @@ def make_cell_dense_advance(params: DEMParams, bcs: DEMBoundaries,
         field = to_cells(grid, capacity, pos, vel, omega)
         feat, ids, ovf = field.feat, field.ids, field.overflow
         feat_b, ids_b = torch.empty_like(feat), torch.empty_like(ids)
-        count = torch.empty(grid.n_cells, dtype=torch.int32, device=device)
+        count = (feat[_MASK] > 0.5).sum(1)
+        landed = torch.empty(grid.n_cells, dtype=torch.int32, device=device)
         for _ in range(n_cycles):
-            feat, feat_b = substeps(feat, feat_b)
-            n_before = (feat[_MASK] > 0.5).sum()
-            dem_migrate(feat, ids, feat_b, ids_b, count, grid)
+            # n + 1 rows: the last is dead and zero, and empty slots gather it
+            rows, row_of_slot = rows_from_prefix_slots(feat, count, n + 1)
+            state = substeps(rows)
+            feat[0:9] = rows_to_planes(state, row_of_slot).reshape(
+                9, *feat.shape[1:])
+            dem_migrate(feat, ids, feat_b, ids_b, landed, grid)
             feat, feat_b, ids, ids_b = feat_b, feat, ids_b, ids
-            lost = (n_before - (feat[_MASK] > 0.5).sum()).abs()
-            ovf = torch.maximum(ovf, torch.maximum(count.max() - capacity,
+            n_before = count.sum()
+            count = torch.clamp(landed, max=capacity)
+            lost = (n_before - count.sum()).abs()
+            ovf = torch.maximum(ovf, torch.maximum(landed.max() - capacity,
                                                    lost).to(torch.int32))
         # unbin through the carried ids (empty slots go to the spare row n)
         valid = feat[_MASK].reshape(-1) > 0.5

@@ -19,6 +19,7 @@ from chrono_tpu_torch.dem.bc import (
     CONTACTS, DEMBoundaries, PlaneBCs, plane_contacts,
 )
 from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
+from chrono_tpu_torch.dem.rows import neighbour_runs
 
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
             for dz in (-1, 0, 1)]
@@ -100,6 +101,51 @@ def cell_pair_forces(pos, vel, omega, mask, radius, kn, gn, kt, gt, mu, dt,
         for a in range(3):
             force[a] += pf[a].sum(-1)
             torque[a] += (arm * tq[a]).sum(-1)
+    return force, torque
+
+
+def row_pair_forces(state, cell, table, dims, radius, kn, gn, kt, gt, mu,
+                    dt, friction: bool, chunk_pairs: int = 2 ** 22):
+    """Per-row force and torque (each (3, R)) of cell-sorted rows by the
+    kernels' walk: for each row, the nine runs of ``neighbour_runs`` in
+    (dx, dy) order, each in row order (dz, then slot), the row itself
+    skipped; each pair from both sides.  state: (3, R, 4) pos, vel, omega;
+    cell (R,), −1 on a dead row; table (n_cells, 2) (start, count).  Works
+    on slabs of rows with at most ``chunk_pairs`` candidates per run."""
+    n_rows = state.shape[1]
+    force = state.new_zeros((3, n_rows))
+    torque = state.new_zeros((3, n_rows))
+    span = 3 * int(table[:, 1].max()) if table.numel() else 0
+    if span == 0:
+        return force, torque
+    runs = neighbour_runs(cell, table, dims)
+    pos, vel, omega = (state[k, :, :3] for k in range(3))
+    offsets = torch.arange(span, device=state.device)
+    rows = torch.arange(n_rows, device=state.device)
+    step = max(1, chunk_pairs // span)
+    for r0 in range(0, n_rows, step):
+        me = slice(r0, min(n_rows, r0 + step))
+        for lo, hi in runs:
+            t = lo[me, None] + offsets
+            ok = (t < hi[me, None]) & (t != rows[me, None])
+            t = torch.where(ok, t, 0)
+            d = [pos[t, a] - pos[me, a, None] for a in range(3)]
+            dist2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            inv = torch.rsqrt(dist2 + 1e-18)
+            overlap = 2.0 * radius - dist2 * inv
+            nh = [a * inv for a in d]
+            delta = torch.clamp(overlap, min=0.0)
+            arm = radius - 0.5 * delta
+            ws = [omega[t, a] + omega[me, a, None] for a in range(3)]
+            cr = _cross(ws, nh)
+            vr = [vel[t, a] - vel[me, a, None] - arm * cr[a]
+                  for a in range(3)]
+            pf = _pair_force(nh, delta, vr, ok & (overlap > 0), kn, gn, kt,
+                             gt, mu, dt, friction)
+            tq = _cross(nh, pf)
+            for a in range(3):
+                force[a, me] += pf[a].sum(-1)
+                torque[a, me] += (arm * tq[a]).sum(-1)
     return force, torque
 
 

@@ -11,6 +11,7 @@ CUDA compiler.
 import pkgutil
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 
 import chrono_tpu_torch
 from chrono_tpu_torch.dem.cell_dense import (
-    pair_coefs, substep_coefs, to_cells,
+    pair_coefs, substep_coefs, to_cells, to_rows,
 )
 from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.ops.cuda import _build
@@ -27,8 +28,12 @@ from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import nsc_detect as nd
 from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
-from chrono_tpu_torch.ops.cuda.dem_forces import dem_forces
-from chrono_tpu_torch.ops.cuda.dem_substep import dem_substep
+from chrono_tpu_torch.ops.cuda.dem_forces import (
+    dem_forces, dem_forces_rows, dem_forces_rows_plain,
+)
+from chrono_tpu_torch.ops.cuda.dem_substep import (
+    dem_substep, dem_substep_rows, dem_substep_rows_plain,
+)
 from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
 
 SPH_SWEEPS = ("sph_adami", "sph_momentum", "sph_continuity_drift")
@@ -74,16 +79,16 @@ def test_package_imports_without_building(monkeypatch):
     z = torch.zeros(pos.shape)
     field = to_cells(grid, C, torch.from_numpy(pos), z, z)
     out = torch.empty_like(field.feat)
-    launches = (dem_substep.launches, dem_migrate.launches,
-                dem_forces.launches)
+    launches = (dem_substep_rows.launches, dem_migrate.launches,
+                dem_forces_rows.launches)
     dem_substep(field.feat, out, substep_coefs(params, bcs, grid, C))
     count = torch.empty(grid.n_cells, dtype=torch.int32)
     dem_migrate(out, field.ids, torch.empty_like(out),
                 torch.empty_like(field.ids), count, grid)
     forces = torch.empty((6,) + tuple(field.feat.shape[1:]))
     dem_forces(field.feat, forces, pair_coefs(params, grid, C))
-    assert (dem_substep.launches, dem_migrate.launches,
-            dem_forces.launches) == launches
+    assert (dem_substep_rows.launches, dem_migrate.launches,
+            dem_forces_rows.launches) == launches
     assert int(count.sum()) == len(pos)
     assert float(forces[0:3].abs().max()) > 0
 
@@ -109,10 +114,10 @@ def test_other_devices_raise():
 @pytest.mark.cuda
 @pytest.mark.parametrize("friction_mode", ["frictionless", "single_step"])
 def test_substep_kernel_matches_twin(card, friction_mode):
-    n = dem_substep.launches
+    n = dem_substep_rows.launches
     assert card.k1_small_substep(friction_mode) < 1e-3
     assert card.k1_three_cycles(friction_mode) < 1e-3
-    assert dem_substep.launches > n
+    assert dem_substep_rows.launches > n
 
 
 @pytest.mark.cuda
@@ -126,11 +131,11 @@ def test_forces_kernel_matches_twin(card):
     friction modes) and the forces path on the five-kind scene, card
     against CPU, as phase 9 of chip_smoke.py checks them; and its input
     checks."""
-    n = dem_forces.launches
+    n = dem_forces_rows.launches
     for mode in ("frictionless", "single_step"):
         assert card.forces_small(mode)[1] <= 1.0
     assert card.forces_path_three_cycles() < 1e-3
-    assert dem_forces.launches > n
+    assert dem_forces_rows.launches > n
     params, bcs, grid, pos, C = card.small_scene(7)
     z = torch.zeros(pos.shape, device="cuda")
     feat = to_cells(grid, C, torch.as_tensor(pos, device="cuda"), z, z).feat
@@ -141,6 +146,80 @@ def test_forces_kernel_matches_twin(card):
         dem_forces(feat.double(), torch.empty_like(feat[:6]), pair)
     with pytest.raises(ValueError):               # wrong plane count
         dem_forces(feat, torch.empty_like(feat), pair)
+
+
+def _row_scenes(card):
+    """The 8,000-sphere overlapping scene and the 120-particle box with
+    random velocities and spins, as rows on the card:
+    ``(params, bcs, grid, C, rows)`` each."""
+    params, bcs, grid, pos, vel, omega, C = card.overlap_scene(n_side=20)
+    yield params, bcs, grid, C, (pos, vel, omega)
+    params, bcs, grid, pos, C = card.small_scene(7)
+    rng = np.random.default_rng(3)
+    yield params, bcs, grid, C, (pos, rng.normal(0, 0.1, pos.shape),
+                                 rng.normal(0, 0.5, pos.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dem_substep", "dem_forces"])
+def test_row_kernels_match_twins(card, kernel):
+    """K1 and ``dem_forces`` on cell-sorted rows against their row twins,
+    at the tolerances of tests/test_pallas_kernel.py; two launches give the
+    same bits."""
+    for params, bcs, grid, C, state in _row_scenes(card):
+        rows = to_rows(grid, C, *(torch.as_tensor(a, dtype=torch.float32,
+                                                  device="cuda")
+                                  for a in state))[0]
+        if kernel == "dem_substep":
+            c = substep_coefs(params, bcs, grid, C)
+            out = torch.zeros_like(rows.state)
+            launch, ref = dem_substep_rows, dem_substep_rows_plain(rows, c)
+        else:
+            c = pair_coefs(params, grid, C)
+            out = rows.state.new_empty((2, rows.n_rows, 4))
+            launch, ref = dem_forces_rows, dem_forces_rows_plain(rows, c)
+        n = launch.launches
+        got = []
+        for _ in range(2):
+            launch(rows, out, c)
+            got.append(out.clone())
+        torch.cuda.synchronize()
+        assert launch.launches == n + 2
+        assert all(torch.equal(g, got[0]) for g in got[1:])
+        live = rows.cell >= 0
+        got, ref = got[0][:, live, :3], ref[:, live, :3]
+        if kernel == "dem_substep":
+            vscale = max(1.0, float(ref[1:3].abs().max()))
+            torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(got[1:3], ref[1:3], rtol=1e-3,
+                                       atol=1e-4 * vscale)
+        else:
+            f_scale = float(ref[0].abs().max())
+            assert f_scale > 0
+            t_atol = 1e-5 * max(float(ref[1].abs().max()),
+                                params.radius * f_scale)
+            torch.testing.assert_close(got[0], ref[0], rtol=1e-4,
+                                       atol=1e-5 * f_scale)
+            torch.testing.assert_close(got[1], ref[1], rtol=1e-4,
+                                       atol=t_atol)
+
+
+@pytest.mark.cuda
+def test_row_wrappers_check_inputs(card):
+    params, bcs, grid, pos, C = card.small_scene(7)
+    z = torch.zeros(pos.shape, device="cuda")
+    rows = to_rows(grid, C, torch.as_tensor(pos, device="cuda"), z, z)[0]
+    coefs = substep_coefs(params, bcs, grid, C)
+    pair = pair_coefs(params, grid, C)
+    with pytest.raises(ValueError):               # in place
+        dem_substep_rows(rows, rows.state, coefs)
+    with pytest.raises(ValueError):               # wrong row count
+        dem_substep_rows(rows, rows.state[:, :-1].clone(), coefs)
+    with pytest.raises(ValueError):               # a cell of the wrong type
+        dem_forces_rows(replace(rows, cell=rows.cell.long()),
+                        rows.state.new_empty((2, rows.n_rows, 4)), pair)
+    with pytest.raises(ValueError):               # out of the wrong shape
+        dem_forces_rows(rows, torch.empty_like(rows.state), pair)
 
 
 @pytest.mark.cuda
