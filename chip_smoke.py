@@ -30,25 +30,30 @@ once) and then runs:
    through ``make_sph_advance_pencil``, checked for overflow, finite values,
    immobile boundary markers, fluid density bounds and launch counts; then
    each sweep against its twin at those shapes, timed with CUDA events;
-   with ``--profile``, a ``torch.profiler`` trace of one more cycle: its
-   wall time, the device time by kernel and the device's idle share;
+   the body-issue share of B's walk (``for_pairs``) and CD's
+   (``for_pairs_compact``) from the counter build; with ``--profile``, a
+   ``torch.profiler`` trace of one more cycle: its wall time, the device
+   time by kernel and the device's idle share;
 5. CRM parity on the card, on the mini bed of tests/test_torch_crm.py
    (0.4 × 0.2 × 0.1 m at d0 = 0.02, 5,017 markers): each sweep
    (``crm_momentum`` in its three modes, ``crm_gradv_stress``) against its
    twin after one substep of a stirred state, 3 cycles of
    ``make_crm_advance_pencil`` on the card against the twins on the CPU,
    and the whole-outer kernel ``crm_outer`` (4 substeps) against the
-   per-sweep kernels and against its twin;
+   per-sweep kernels and against its twin, with its neighbour list of 128
+   slots (no overflow) and of 16 (an overflow reported, the same state);
 6. CRM terrain at full width: a 10 × 4 × 0.2 m vehicle test lane of the
    demo's loam at d0 = 0.02 (1,000,000 granular markers and the wall
    layers, cells of 2h, C = 32, 4 substeps per cycle) for 1 warm-up and
    2 timed cycles through ``make_crm_advance_pencil``, checked for
    overflow, finite values, walls unmoved bit for bit and every granular
    stress inside the Drucker–Prager cone; then the same cycles through
-   the engine's whole-outer path (bin, one ``crm_outer`` launch, unbin);
-   then each kernel against its twin at those shapes, timed with CUDA
-   events, and ``crm_outer`` against its 8 per-sweep launches on the
-   demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05);
+   the engine's whole-outer path (bin, one ``crm_outer`` launch, unbin),
+   its cell and neighbour-list overflow 0; then each kernel against its
+   twin at those shapes, timed with CUDA events, ``crm_outer`` against its
+   8 per-sweep launches in turns, the body-issue share of the two from the
+   counter build, and ``crm_outer`` against its 8 per-sweep launches on
+   the demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05);
 7. NSC parity on the card: ``nsc_detect`` (bit for bit), ``nsc_sweep_u``
    and ``nsc_sweep_g`` against their twins on the 24-sphere scene of
    tests/test_nsc_pencil.py under the blade walls at θ = 0.3 (with P = 12,
@@ -92,6 +97,7 @@ the card could take for the same work), and as its last line
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import time
@@ -158,6 +164,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 KERNELS = ("dem_substep", "migrate", "sph_substep", "crm_substep",
            "crm_outer", "nsc_detect", "nsc_sweep", "dem_forces")
+# the sources whose pair walks the counter build (-DPAIR_COUNTERS,
+# csrc/cell_pairs.cuh) tallies
+COUNTED = ("sph_substep", "crm_substep", "crm_outer")
 
 
 def require(ok, msg):
@@ -982,6 +991,15 @@ def sph_main_path(card, profile):
                                              out["cd"]),
             lambda: sph.sph_continuity_drift_plain(feat, ref_v, cells, c)),
     }
+    # the body-issue share: B walks with for_pairs the markers and
+    # candidates that CD walked before it ran on the compacted walk
+    start = cells.start.long()[cells.cell.long()]
+    walkers = int(((feat[sph.FLU] > 0.5) & (torch.arange(n, device=DEV)
+                                            - start < C)).sum())
+    for name, what in (("sph_momentum", "for_pairs (B; CD's walk before)"),
+                       ("sph_continuity_drift", "for_pairs_compact (CD)")):
+        print(f"{name} at 1M, {what}: " + format_tally(tally_walks(
+            ["sph_substep"], n, calls[name][0]), walkers))
     pairs = sph_pair_counts(feat, cells, params.h)
     table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
     n_bytes = {"sph_adami": (10 + sph.N_ADAMI) * n * 4 + table,
@@ -1001,7 +1019,9 @@ def sph_main_path(card, profile):
               f"by {by}")
         rows.append({
             "name": name, "route": "cuda",
-            "source": "chrono_tpu_torch/csrc/sph_substep.cu",
+            "source": "chrono_tpu_torch/csrc/sph_substep.cu"
+                      + (" (+ cell_pairs.cuh)"
+                         if name == "sph_continuity_drift" else ""),
             "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err,
             "max_abs_err_plane": plane, "err_over_tol": over_tol,
@@ -1079,6 +1099,36 @@ def kernel_device_ms(fn, kernel, reps):
     require(n == 1, f"the profiler saw {n} launches of {kernel} per call, "
             "not 1")
     return sum(us for k, (us, _) in per_call.items() if kernel in k) / 1e3
+
+
+def tally_walks(libs, n, fn):
+    """Run ``fn`` on the counter builds of ``libs``: the sums over the
+    launches' threads of (warp candidate iterations, warp pair-body
+    issues, lane candidates, lane pair-body runs), each warp count taken
+    once per converged group of lanes (csrc/cell_pairs.cuh)."""
+    buf = torch.zeros((-(-n // 256) * 256, 4), dtype=torch.int64,
+                      device=DEV)
+    with _build.variant("PAIR_COUNTERS"):
+        for lib in libs:
+            err = _build.load(lib).pair_tally_bind(
+                ctypes.c_void_p(buf.data_ptr()))
+            require(err == 0, f"pair_tally_bind({lib}): cudaError {err}")
+        fn()
+        torch.cuda.synchronize()
+    return [int(x) for x in buf.sum(0).tolist()]
+
+
+def format_tally(t, walkers):
+    """The body-issue share of a tally: warp body issues per warp
+    candidate iteration, lanes busy per body issue, and both per walking
+    marker."""
+    cand, body, lane_cand, lane_body = t
+    return (f"{cand / walkers:.2f} warp candidate iterations and "
+            f"{body / walkers:.2f} body issues a walking marker; the warp ran "
+            f"the body in {body / max(cand, 1):.4f} of its candidate "
+            f"iterations, {lane_body / max(body, 1):.2f} of 32 lanes busy "
+            f"({lane_body / walkers:.2f} pairs, hit rate "
+            f"{lane_body / max(lane_cand, 1):.4f})")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1204,13 +1254,19 @@ def crm_sweeps_vs_twins(feat, cells, c, what):
     return errs, (ref_mv, ref_acc, ref_out)
 
 
-def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True):
-    """``crm_outer`` (n_sub substeps in one launch) against n_sub substeps
-    of the per-sweep kernels (with_acc on the last) and, with ``twin``,
-    against its twin.  Returns the errors by reference and plane."""
+def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True,
+                        slots=crm.LIST_SLOTS):
+    """``crm_outer`` (n_sub substeps in one launch, a neighbour list of
+    ``slots``) against n_sub substeps of the per-sweep kernels (with_acc on
+    the last) and, with ``twin``, against its twin.  Returns the errors by
+    reference and plane, the list overflow (with ``twin``, checked against
+    the twin's) and the twin's most in-support neighbours of a marker
+    (None without ``twin``)."""
     n = feat.shape[1]
     out, acc = feat.new_empty((crm.N_STATE, n)), feat.new_empty((3, n))
-    crm.crm_outer_substeps(feat, cells, c, n_sub, out, acc)
+    nbrs = torch.empty((slots, n), dtype=torch.int32, device=feat.device)
+    list_ovf = int(crm.crm_outer_substeps(feat, cells, c, n_sub, out, acc,
+                                          nbrs))
     mv, ref_acc = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n))
     cur = feat
     for s in range(n_sub):
@@ -1219,15 +1275,25 @@ def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True):
                         ref_acc if s == n_sub - 1 else None)
         cur = nxt
     refs = {"per-sweep kernels": (cur, ref_acc)}
+    most = None
     if twin:
-        refs["twin"] = crm.crm_outer_substeps_plain(feat, cells, c, n_sub)
+        most = torch.zeros((), dtype=torch.int32, device=feat.device)
+        refs["twin"] = crm.crm_outer_substeps_plain(feat, cells, c, n_sub,
+                                                    most)
+        most = int(most)
+        twin_ovf = max(0, most - slots)
+        # within one: a neighbour at r = 2h may round to either side
+        require((list_ovf > 0) == (twin_ovf > 0)
+                and abs(list_ovf - twin_ovf) <= 1,
+                f"{what}: crm_outer's list overflow {list_ovf}, the twin's "
+                f"{twin_ovf}")
     errs = {}
     for name, (ref, r_acc) in refs.items():
         w = f"{what} crm_outer vs {name}"
         errs[name] = crm_state_errs(out, ref, w)
         errs[name]["acc"] = crm_scaled_close(acc, r_acc, 1e-4, 5e-5,
                                              f"{w} acc")
-    return errs
+    return errs, list_ovf, most
 
 
 def crm_one_substep():
@@ -1240,7 +1306,27 @@ def crm_one_substep():
     feat, _, cells, ovf = eng["bin"](state)
     require(int(ovf) == 0, "the mini bed overflows its cells")
     errs = crm_sweeps_vs_twins(feat, cells, c, "mini bed")[0]
-    return errs, crm_outer_vs_sweeps(feat, cells, c, 4, "mini bed")
+    outer_errs, list_ovf, _ = crm_outer_vs_sweeps(feat, cells, c, 4,
+                                                  "mini bed")
+    require(list_ovf == 0, f"mini bed: list overflow {list_ovf}")
+    return errs, outer_errs
+
+
+def crm_outer_short_list(slots=16):
+    """``crm_outer`` on the stirred mini bed with a list of ``slots``, too
+    short for its markers: it reports the overflow (as its twin counts it)
+    and its state still matches the per-sweep kernels and the twin, since
+    a marker past the list walks again.  Returns (errors, overflow)."""
+    params, soil, grid, state = crm_stirred_mini()
+    c = crm.crm_static_params(params, soil)
+    feat, _, cells, ovf = make_crm_engine(params, soil, grid, 32,
+                                          device=DEV)["bin"](state)
+    require(int(ovf) == 0, "the mini bed overflows its cells")
+    errs, list_ovf, _ = crm_outer_vs_sweeps(feat, cells, c, 4,
+                                            f"mini bed, {slots} slots",
+                                            slots=slots)
+    require(list_ovf > 0, f"{slots} slots: no list overflow reported")
+    return errs, list_ovf
 
 
 def crm_three_cycles():
@@ -1389,10 +1475,10 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
         ovf = torch.zeros((), dtype=torch.int32, device=DEV)
         for _ in range(n_cycles):
             feat, order, cells, o = eng["bin"](s)
-            out, _ = eng["outer"](feat, cells, steps)
+            out, _, list_ovf = eng["outer"](feat, cells, steps)
             s = cells_to_crm_state(out, order, s)
             s = s.replace(time=s.time + params.dt * steps)
-            ovf = torch.maximum(ovf, o)
+            ovf = torch.maximum(ovf, torch.maximum(o, list_ovf))
         return s, ovf
 
     for name in CRM_SWEEPS:
@@ -1410,7 +1496,8 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
         assert_close(so.rho, st.rho, **CRM_RHO_TOL, what="outer path rho"),
         *(crm_scaled_close(getattr(so, f), getattr(st, f), 1e-4, 2e-4,
                            f"outer path {f}")[0] for f in ("tau_d", "tau_o")))
-    print(f"CRM whole-outer path: launches {launches_o}, {2 * steps} "
+    print(f"CRM whole-outer path: launches {launches_o}, cell and "
+          f"neighbour-list ({crm.LIST_SLOTS} slots) overflow 0, {2 * steps} "
           f"substeps in {wall_o:.4f} s = {n_g * 2 * steps / wall_o:.6e} "
           f"marker-steps/s; against the per-sweep path after 3 cycles max "
           f"abs err {outer_vs_sweeps:.3e}")
@@ -1419,7 +1506,12 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
     c = eng["consts"]
     feat, _, cells, _ = eng["bin"](st)
     errs, (ref_mv, _, _) = crm_sweeps_vs_twins(feat, cells, c, "bed at 1M")
-    outer_errs = crm_outer_vs_sweeps(feat, cells, c, steps, "bed at 1M")
+    outer_errs, list_ovf, most = crm_outer_vs_sweeps(feat, cells, c, steps,
+                                                     "bed at 1M")
+    require(list_ovf == 0, f"bed at 1M: list overflow {list_ovf}")
+    print(f"crm_outer at 1M: neighbour list of {crm.LIST_SLOTS} slots, "
+          f"overflow 0; the most in-support neighbours of a marker over the "
+          f"{steps} substeps {most} (twin)")
     errs["crm_outer"] = outer_errs["twin"]
     print(f"CRM sweeps vs twins at 1M, max abs err per plane: "
           f"{format_errs(errs)}")
@@ -1440,6 +1532,31 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
                                            bufs["a"]),
             lambda: crm.crm_outer_substeps_plain(feat, cells, c, steps), 1),
     }
+    # crm_outer against the 8 per-sweep launches it replaces at 1M, in
+    # turns, and the body-issue share of the two
+    sweep_bufs = [feat.new_empty((crm.N_STATE, n)) for _ in range(2)]
+
+    def per_sweep_1m():
+        cur = feat
+        for s in range(steps):
+            nxt = sweep_bufs[s % 2]
+            crm.crm_substep(cur, cells, c, bufs["mv"], nxt,
+                            bufs["a"] if s == steps - 1 else None)
+            cur = nxt
+
+    turns = [cuda_ms(f, 5) for f in (calls["crm_outer"][0], per_sweep_1m,
+                                     per_sweep_1m, calls["crm_outer"][0])]
+    print(f"crm_outer at 1M: {turns[0]:.4f} / {turns[3]:.4f} ms against "
+          f"{2 * steps} per-sweep launches {turns[1]:.4f} / {turns[2]:.4f} "
+          f"ms (in turns) on {card}")
+    walkers = int(((feat[crm.VAL] > 0.5) & (feat[crm.INT] > 0.5)).sum())
+    for what, fn in (("per-sweep M, G (for_pairs; crm_outer's walks before)",
+                      per_sweep_1m),
+                     ("crm_outer (M for_pairs_compact, G its list)",
+                      calls["crm_outer"][0])):
+        print(f"{steps} substeps at 1M, {what}: " + format_tally(
+            tally_walks(["crm_substep", "crm_outer"], n, fn),
+            walkers * steps))
     pairs = crm_pair_counts(feat, cells, params.h)
     table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
     n_bytes = {"crm_momentum": (crm.N_STATE + crm.N_MV) * n * 4 + table,
@@ -1465,6 +1582,8 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
               f"{by}")
         rows.append({
             "name": name, "route": "cuda", "source": CRM_SOURCES[name],
+            **({"per_sweep_ms": [turns[1], turns[2]]}
+               if name == "crm_outer" else {}),
             "replaces": CRM_REPLACES[name],
             "launches": all_launches[name], "max_abs_err": err,
             "max_abs_err_plane": plane, "err_over_tol": over_tol,
@@ -1478,8 +1597,9 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
     feat, _, cells, ovf = eng["bin"](state)
     require(int(ovf) == 0, "the demo bed overflows its cells")
     c = eng["consts"]
-    demo_errs = crm_outer_vs_sweeps(feat, cells, c, steps, "demo bed",
-                                    twin=False)
+    demo_errs, list_ovf, _ = crm_outer_vs_sweeps(feat, cells, c, steps,
+                                                 "demo bed", twin=False)
+    require(list_ovf == 0, f"demo bed: list overflow {list_ovf}")
     out, acc = torch.empty_like(feat), feat.new_empty((3, feat.shape[1]))
     spare, mv = torch.empty_like(feat), feat.new_empty((crm.N_MV,
                                                         feat.shape[1]))
@@ -2336,13 +2456,13 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
+    _build.build_all([*KERNELS, *((name, ("PAIR_COUNTERS",))
+                                  for name in COUNTED)])
     for name in KERNELS:
         _build.load(name)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text() \
-                .splitlines():
+        for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
 
@@ -2386,6 +2506,11 @@ def main():
     for name, e in outer_errs.items():
         print(f"crm_outer (4 substeps) vs {name}, mini bed: "
               f"{format_errs({'crm_outer': e})}")
+    errs, list_ovf = crm_outer_short_list()
+    print(f"crm_outer (4 substeps) with a 16-slot list, mini bed: list "
+          f"overflow {list_ovf} reported; "
+          + "; ".join(f"vs {k}: " + format_errs({"crm_outer": e})
+                      for k, e in errs.items()))
     print(f"CRM path vs twins, mini bed, 3 cycles x 4 substeps: max abs err "
           f"{crm_three_cycles():.3e}")
     print(f"phase 5 took {time.perf_counter() - t0:.2f} s")

@@ -29,7 +29,9 @@
 // sweep reads is written by a later one, so its loads must not go through
 // the non-coherent read-only cache.
 //
-// Each thread sums the pairs of its own marker only (for_pairs,
+// Each thread sums the pairs of its own marker only (for_pairs in the
+// per-sweep kernels; in the whole-outer kernel for_pairs_compact in M and
+// M's list in G, which hand over the same pairs in the same order;
 // cell_pairs.cuh): no atomics, a fixed order.  A pair beyond 2h is skipped,
 // an exact no-op: the cubic dW/dr is 0 there and the penalty needs
 // r < d0 < 2h.  The pair loop runs only where its result is used: M on
@@ -57,58 +59,72 @@ enum {
 };
 enum { MV_VX, MV_VY, MV_VZ, MV_IRHO, kMv };
 
-// Sweep M for marker i.  mv (4, N) gets the kicked velocity and 1/rho when
-// given; acc (3, N) the raw acceleration when given.
-__device__ __forceinline__ void momentum(const float* st, const Cells& c,
-                                         int n, int i, const CrmConsts& k,
-                                         float* mv, float* acc_out) {
-  const float v[3] = {st[VX * n + i], st[VY * n + i], st[VZ * n + i]};
-  const bool valid = st[VAL * n + i] > 0.5f;
-  const bool kick = valid && st[INT * n + i] > 0.5f;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (valid && (acc_out != nullptr || (kick && mv != nullptr))) {
-    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
-    const float rho_i = st[RHO * n + i];
-    const float ir2_i = st[DER * n + i];
-    const bool gi = st[GRN * n + i] > 0.5f;
-    float si[6];
-    for (int a = 0; a < 6; ++a) si[a] = st[(SXX + a) * n + i];
-    const float eps_h2 = 0.01f * k.h * k.h;
-    for_pairs(
-        st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
-        [&](int j, const float* d, float r2, float r, float q) {
-          const float gf = cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
-          const float gw[3] = {k.m * gf * d[0], k.m * gf * d[1],
-                               k.m * gf * d[2]};
-          const bool gj = st[GRN * n + j] > 0.5f;
-          const float ir2_j = st[DER * n + j];
-          // sigma_i/rho_i^2 + sigma_j/rho_j^2; a wall neighbour carries no
-          // evolved stress and mirrors the granular marker's own
-          float T[6];
-          for (int a = 0; a < 6; ++a)
-            T[a] = si[a] * ir2_i +
-                   (gj ? st[(SXX + a) * n + j] : si[a]) * ir2_j;
-          acc[0] += T[0] * gw[0] + T[3] * gw[1] + T[4] * gw[2];
-          acc[1] += T[3] * gw[0] + T[1] * gw[1] + T[5] * gw[2];
-          acc[2] += T[4] * gw[0] + T[5] * gw[1] + T[2] * gw[2];
-          const float vij[3] = {v[0] - st[VX * n + j], v[1] - st[VY * n + j],
-                                v[2] - st[VZ * n + j]};
-          const float vr = vij[0] * d[0] + vij[1] * d[1] + vij[2] * d[2];
-          if (vr < 0.0f) {     // artificial viscosity, approaching pairs
-            const float mu_ij = k.h * vr / (r2 + eps_h2);
-            const float pi = -k.alpha_visc * k.c_s * mu_ij /
-                             (0.5f * (rho_i + st[RHO * n + j]));
-            for (int a = 0; a < 3; ++a) acc[a] -= pi * gw[a];
-          }
-          if (gi != gj && r < k.d0) {   // mixed-pair boundary penalty
-            const float nh[3] = {d[0] / r, d[1] / r, d[2] / r};
-            const float vn = vij[0] * nh[0] + vij[1] * nh[1] + vij[2] * nh[2];
-            const float pen = k.k_bc * ((k.d0 - r) / k.d0) -
-                              k.c_bc * vn * (vn < 0.0f ? 1.0f : 0.3f);
-            for (int a = 0; a < 3; ++a) acc[a] += pen * nh[a];
-          }
-        });
+// Each sweep is a per-pair body and a per-marker epilogue, so that the
+// per-sweep kernels (momentum, gradv_stress: for_pairs) and the whole-outer
+// kernel (momentum_listing, gradv_stress_listed: the compacted walk and its
+// list) run the same arithmetic.
+
+// Marker i's terms that sweep M's pair body reads.
+struct MomentumSelf {
+  float v[3];
+  float rho, ir2;   // rho and 1/max(rho^2, 1e-9)
+  float s[6];       // sigma
+  bool gran;
+};
+
+__device__ __forceinline__ void momentum_self(const float* st, int n, int i,
+                                              MomentumSelf& me) {
+  me.rho = st[RHO * n + i];
+  me.ir2 = st[DER * n + i];
+  me.gran = st[GRN * n + i] > 0.5f;
+  for (int a = 0; a < 6; ++a) me.s[a] = st[(SXX + a) * n + i];
+}
+
+// Adds pair (i, j) to sweep M's raw acceleration of i.
+__device__ __forceinline__ void momentum_pair(const float* st, int n,
+                                              const CrmConsts& k,
+                                              const MomentumSelf& me, int j,
+                                              const float* d, float r2,
+                                              float r, float q,
+                                              float acc[3]) {
+  const float eps_h2 = 0.01f * k.h * k.h;
+  const float gf = cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
+  const float gw[3] = {k.m * gf * d[0], k.m * gf * d[1], k.m * gf * d[2]};
+  const bool gj = st[GRN * n + j] > 0.5f;
+  const float ir2_j = st[DER * n + j];
+  // sigma_i/rho_i^2 + sigma_j/rho_j^2; a wall neighbour carries no evolved
+  // stress and mirrors the granular marker's own
+  float T[6];
+  for (int a = 0; a < 6; ++a)
+    T[a] = me.s[a] * me.ir2 + (gj ? st[(SXX + a) * n + j] : me.s[a]) * ir2_j;
+  acc[0] += T[0] * gw[0] + T[3] * gw[1] + T[4] * gw[2];
+  acc[1] += T[3] * gw[0] + T[1] * gw[1] + T[5] * gw[2];
+  acc[2] += T[4] * gw[0] + T[5] * gw[1] + T[2] * gw[2];
+  const float vij[3] = {me.v[0] - st[VX * n + j], me.v[1] - st[VY * n + j],
+                        me.v[2] - st[VZ * n + j]};
+  const float vr = vij[0] * d[0] + vij[1] * d[1] + vij[2] * d[2];
+  if (vr < 0.0f) {     // artificial viscosity, approaching pairs
+    const float mu_ij = k.h * vr / (r2 + eps_h2);
+    const float pi = -k.alpha_visc * k.c_s * mu_ij /
+                     (0.5f * (me.rho + st[RHO * n + j]));
+    for (int a = 0; a < 3; ++a) acc[a] -= pi * gw[a];
   }
+  if (me.gran != gj && r < k.d0) {   // mixed-pair boundary penalty
+    const float nh[3] = {d[0] / r, d[1] / r, d[2] / r};
+    const float vn = vij[0] * nh[0] + vij[1] * nh[1] + vij[2] * nh[2];
+    const float pen = k.k_bc * ((k.d0 - r) / k.d0) -
+                      k.c_bc * vn * (vn < 0.0f ? 1.0f : 0.3f);
+    for (int a = 0; a < 3; ++a) acc[a] += pen * nh[a];
+  }
+}
+
+// Sweep M's epilogue: mv (4, N) gets the kicked velocity and 1/rho when
+// given; acc_out (3, N) the raw acceleration when given.
+__device__ __forceinline__ void momentum_finish(const float* st, int n, int i,
+                                                const CrmConsts& k, bool kick,
+                                                const float v[3],
+                                                const float acc[3],
+                                                float* mv, float* acc_out) {
   if (mv != nullptr) {
     for (int a = 0; a < 3; ++a)
       mv[(MV_VX + a) * n + i] =
@@ -119,36 +135,94 @@ __device__ __forceinline__ void momentum(const float* st, const Cells& c,
     for (int a = 0; a < 3; ++a) acc_out[a * n + i] = acc[a];
 }
 
-// Sweep G for marker i: out (17, N) gets the next state.
-__device__ __forceinline__ void gradv_stress(const float* st,
-                                             const float* mv, const Cells& c,
-                                             int n, int i, const CrmConsts& k,
-                                             float* out) {
-  const float v1[3] = {mv[MV_VX * n + i], mv[MV_VY * n + i],
-                       mv[MV_VZ * n + i]};
+// Sweep M for marker i.  mv (4, N) gets the kicked velocity and 1/rho when
+// given; acc (3, N) the raw acceleration when given.
+__device__ __forceinline__ void momentum(const float* st, const Cells& c,
+                                         int n, int i, const CrmConsts& k,
+                                         float* mv, float* acc_out) {
+  MomentumSelf me;
+  for (int a = 0; a < 3; ++a) me.v[a] = st[(VX + a) * n + i];
   const bool valid = st[VAL * n + i] > 0.5f;
-  const bool move = valid && st[INT * n + i] > 0.5f;
-  float x[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
-  float s[6];
-  for (int a = 0; a < 6; ++a) s[a] = st[(SXX + a) * n + i];
-  float rho = st[RHO * n + i];
+  const bool kick = valid && st[INT * n + i] > 0.5f;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (valid && (acc_out != nullptr || (kick && mv != nullptr))) {
+    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+    momentum_self(st, n, i, me);
+    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
+              [&](int j, const float* d, float r2, float r, float q) {
+                momentum_pair(st, n, k, me, j, d, r2, r, q, acc);
+              });
+  }
+  momentum_finish(st, n, i, k, kick, me.v, acc, mv, acc_out);
+}
+
+// Sweep M of the whole-outer kernel, for marker i (i < 0: a lane past the
+// markers, which only votes in the walk), on the compacted walk, with mv
+// given.  An integrated marker also lists its in-support neighbours, in walk
+// order, for sweep G: the first K in list (K, N), entry t at list[t * n + i]
+// (slot-major, so that the lanes of a warp read one slot of consecutive
+// markers at once; marker-major was 22 % slower: PERF.md); their number, which
+// may pass K, in n_listed[i]; and the largest number seen in most[i].  Every
+// lane of a warp calls it together; kDepth and kUnroll are the walk's
+// (for_pairs_compact).
+template <int kDepth, int kUnroll>
+__device__ __forceinline__ void momentum_listing(
+    const float* st, const Cells& c, int n, int i, const CrmConsts& k,
+    float* mv, float* acc_out, int* list, int K, int* n_listed, int* most,
+    int* hits) {
+  const bool in = i >= 0;
+  const int m = in ? i : 0;
+  MomentumSelf me;
+  for (int a = 0; a < 3; ++a) me.v[a] = st[(VX + a) * n + m];
+  const bool valid = in && st[VAL * n + m] > 0.5f;
+  const bool kick = valid && st[INT * n + m] > 0.5f;
+  const bool walk = valid && (acc_out != nullptr || kick);
+  const float xi[3] = {st[PX * n + m], st[PY * n + m], st[PZ * n + m]};
+  if (walk) momentum_self(st, n, m, me);
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  int listed = 0;
+  for_pairs_compact<kDepth, kUnroll>(
+      st + PX * n, st + PY * n, st + PZ * n, c, m, xi, k.h, walk, hits,
+      [&](int j, const float* d, float r2, float r, float q) {
+        if (kick) {
+          if (listed < K) list[listed * n + m] = j;
+          ++listed;
+        }
+        momentum_pair(st, n, k, me, j, d, r2, r, q, acc);
+      });
+  if (!in) return;
+  if (kick) {
+    n_listed[i] = listed;
+    most[i] = max(most[i], listed);
+  }
+  momentum_finish(st, n, i, k, kick, me.v, acc, mv, acc_out);
+}
+
+// Adds pair (i, j) to sweep G's velocity gradient g[3a + b] =
+// sum_j (m/rho_j) (v_j - v_i)_a dW/dx_b and continuity term of i.
+__device__ __forceinline__ void gradv_pair(const float* mv, int n,
+                                           const CrmConsts& k,
+                                           const float v1[3], int j,
+                                           const float* d, float r, float q,
+                                           float g[9], float& drho) {
+  const float gf = cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
+  const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
+  const float u[3] = {mv[MV_VX * n + j] - v1[0], mv[MV_VY * n + j] - v1[1],
+                      mv[MV_VZ * n + j] - v1[2]};
+  const float w = k.m * mv[MV_IRHO * n + j];
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) g[3 * a + b] += w * u[a] * gw[b];
+  drho -= k.m * (u[0] * gw[0] + u[1] * gw[1] + u[2] * gw[2]);
+}
+
+// Sweep G's epilogue for marker i: out (17, N) gets the next state.
+__device__ __forceinline__ void gradv_finish(const float* st, int n, int i,
+                                             const CrmConsts& k, bool valid,
+                                             bool move, float x[3],
+                                             const float v1[3], float s[6],
+                                             float rho, const float g[9],
+                                             float drho, float* out) {
   if (move) {
-    // g[3a + b] = sum_j (m/rho_j) (v_j - v_i)_a dW/dx_b
-    float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float drho = 0.0f;
-    for_pairs(
-        st + PX * n, st + PY * n, st + PZ * n, c, i, x, k.h,
-        [&](int j, const float* d, float, float r, float q) {
-          const float gf = cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
-          const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
-          const float u[3] = {mv[MV_VX * n + j] - v1[0],
-                              mv[MV_VY * n + j] - v1[1],
-                              mv[MV_VZ * n + j] - v1[2]};
-          const float w = k.m * mv[MV_IRHO * n + j];
-          for (int a = 0; a < 3; ++a)
-            for (int b = 0; b < 3; ++b) g[3 * a + b] += w * u[a] * gw[b];
-          drho -= k.m * (u[0] * gw[0] + u[1] * gw[1] + u[2] * gw[2]);
-        });
     // Jaumann: sigma + dt (2G dev D + K tr D I + W sigma - sigma W)
     const float dxy = 0.5f * (g[1] + g[3]);
     const float dxz = 0.5f * (g[2] + g[6]);
@@ -193,6 +267,64 @@ __device__ __forceinline__ void gradv_stress(const float* st,
   for (int a = 0; a < 6; ++a) out[(SXX + a) * n + i] = s[a];
   for (int f = GRN; f <= VAL; ++f) out[f * n + i] = st[f * n + i];
   out[DER * n + i] = 1.0f / fmaxf(rho * rho, 1e-9f);
+}
+
+// Sweep G for marker i: out (17, N) gets the next state.
+__device__ __forceinline__ void gradv_stress(const float* st,
+                                             const float* mv, const Cells& c,
+                                             int n, int i, const CrmConsts& k,
+                                             float* out) {
+  const float v1[3] = {mv[MV_VX * n + i], mv[MV_VY * n + i],
+                       mv[MV_VZ * n + i]};
+  const bool valid = st[VAL * n + i] > 0.5f;
+  const bool move = valid && st[INT * n + i] > 0.5f;
+  float x[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+  float s[6];
+  for (int a = 0; a < 6; ++a) s[a] = st[(SXX + a) * n + i];
+  const float rho = st[RHO * n + i];
+  float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float drho = 0.0f;
+  if (move)
+    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, x, k.h,
+              [&](int j, const float* d, float, float r, float q) {
+                gradv_pair(mv, n, k, v1, j, d, r, q, g, drho);
+              });
+  gradv_finish(st, n, i, k, valid, move, x, v1, s, rho, g, drho, out);
+}
+
+// Sweep G of the whole-outer kernel, for marker i (i < 0: a lane past the
+// markers): an integrated marker replays the n_listed[i] pairs that
+// momentum_listing listed, or, when they passed K, walks again
+// (for_pairs_compact); either way the pairs of for_pairs in its order.
+// Every lane of a warp calls it together.
+template <int kDepth, int kUnroll>
+__device__ __forceinline__ void gradv_stress_listed(
+    const float* st, const float* mv, const Cells& c, int n, int i,
+    const CrmConsts& k, float* out, const int* list, int K,
+    const int* n_listed, int* hits) {
+  const bool in = i >= 0;
+  const int m = in ? i : 0;
+  const float v1[3] = {mv[MV_VX * n + m], mv[MV_VY * n + m],
+                       mv[MV_VZ * n + m]};
+  const bool valid = in && st[VAL * n + m] > 0.5f;
+  const bool move = valid && st[INT * n + m] > 0.5f;
+  float x[3] = {st[PX * n + m], st[PY * n + m], st[PZ * n + m]};
+  float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float drho = 0.0f;
+  const int listed = move ? n_listed[m] : 0;
+  const auto pair = [&](int j, const float* d, float, float r, float q) {
+    gradv_pair(mv, n, k, v1, j, d, r, q, g, drho);
+  };
+  if (listed <= K)
+    for_listed_pairs(st + PX * n, st + PY * n, st + PZ * n, list + m, n,
+                     listed, x, k.h, pair);
+  for_pairs_compact<kDepth, kUnroll>(st + PX * n, st + PY * n, st + PZ * n,
+                                     c, m, x, k.h, listed > K, hits, pair);
+  if (!in) return;
+  float s[6];
+  for (int a = 0; a < 6; ++a) s[a] = st[(SXX + a) * n + i];
+  gradv_finish(st, n, i, k, valid, move, x, v1, s, st[RHO * n + i], g, drho,
+               out);
 }
 
 }  // namespace crm

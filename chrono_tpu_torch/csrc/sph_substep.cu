@@ -15,26 +15,28 @@
 // are copied through.
 //
 // Each thread walks the 27 neighbour cells (edge cells skipped) in a fixed
-// order (for_pairs, cell_pairs.cuh, which the CRM sweeps share) and sums
-// every pair onto its own marker only: no atomics, and a
-// deterministic sum.  A pair beyond the kernel support 2h adds exact zeros
-// in the plain twin, so it is skipped (first on r^2 with a safe margin, then
-// on q = r/h >= 2 exactly as the twin's branches).  A sweep's pair loop runs
-// only where its result is used: A on solid markers (the Adami values of a
-// fluid marker are its own), B and CD on fluid markers (solids are not
-// integrated; their x is written back unchanged, bit for bit).  Each sweep
-// reads the previous sweep's output on every neighbour, so each is its own
-// launch into a fresh buffer.  Per-marker terms (Tait p, its inverse, p/rho^2,
-// 1/rho) are computed once per marker, in the epilogue of the sweep before
-// the one that reads them: never per pair.
+// order (for_pairs in A and B, for_pairs_compact in CD: cell_pairs.cuh,
+// which the CRM sweeps share) and sums every pair onto its own marker only:
+// no atomics, and a deterministic sum.  A pair beyond the kernel support 2h
+// adds exact zeros in the plain twin, so it is skipped (first on r^2 with a
+// safe margin, then on q = r/h >= 2 exactly as the twin's branches).  A
+// sweep's pair loop runs only where its result is used: A on solid markers
+// (the Adami values of a fluid marker are its own), B and CD on fluid
+// markers (solids are not integrated; their x is written back unchanged, bit
+// for bit).  Each sweep reads the previous sweep's output on every
+// neighbour, so each is its own launch into a fresh buffer.  Per-marker
+// terms (Tait p, its inverse, p/rho^2, 1/rho) are computed once per marker,
+// in the epilogue of the sweep before the one that reads them: never per
+// pair.
 //
 // What bounds it: at the 1 M-marker dam break (cells 1.25 x 2h) a fluid
 // marker tests ~660 candidates, of which ~8 % lie inside the support.  The
 // candidate loop (three position loads, served from L1 because the threads
 // of a warp share most neighbour cells, and a distance test) and the ~60
 // flops of each interacting pair bound it, not DRAM: each sweep moves ~70 MB.
-// Kept simple: no shared-memory staging of the neighbourhood, no half
-// stencil.
+// Inline in the candidate loop (A, B) a warp issues the pair body whenever
+// any lane has a hit; CD, the longest sweep, runs it over compacted hits.
+// No shared-memory staging of the neighbourhood, no half stencil.
 
 #include <cuda_runtime.h>
 
@@ -154,39 +156,63 @@ sph_momentum_kernel(const float* __restrict__ st,
 
 // ---- sweep CD: continuity + delta-SPH at the kicked velocities, then XSPH
 // drift with the weight at rho^n (sph_sym_kernel.py:495-555) ----
-__global__ void __launch_bounds__(256)
+//
+// The one sweep on the compacted walk (for_pairs_compact): a fluid marker
+// scans its ~680 candidates and runs the pair body over its ~8 % hits only, in
+// for_pairs' order, so each marker sums the same pairs in the same order as
+// before (bit for bit, on the card).  Every lane of a warp takes part in the
+// walk's votes, so a thread past n walks nothing and writes nothing.  The hit
+// buffer's depth (kCdHitDepth slots a thread, 40 KB a block), the scan's
+// stretch (kCdUnroll candidates) and kCdMinBlocks (blocks of 256 an SM should
+// hold, which caps the registers; no spills) were set by timing on the card;
+// PERF.md gives the registers and the times.  What bounds it then: the scan's
+// candidate loads (~25 warp iterations a fluid marker against ~2.3 body
+// issues).
+constexpr int kCdHitDepth = 40;
+constexpr int kCdUnroll = 4;
+constexpr int kCdMinBlocks = 3;
+
+__global__ void __launch_bounds__(256, kCdMinBlocks)
 sph_continuity_drift_kernel(const float* __restrict__ st,
                             const float* __restrict__ vel, Cells c,
                             float* __restrict__ out, int n, SphConsts k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ int hits[];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool mine = t < n;
+  const int i = mine ? t : n - 1;
   const float flu = st[FLU * n + i];
   const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
   const float v1[3] = {vel[i], vel[n + i], vel[2 * n + i]};
   const float rho_i = st[RHO * n + i];
   float rho = rho_i;
   float x1[3] = {xi[0], xi[1], xi[2]};
-  if (flu > 0.5f && live(c, i)) {
-    float drho = 0.0f, diff = 0.0f, corr[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
-              [&](int j, const float* d, float r2, float r, float q) {
-                const float gf =
-                    cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
-                const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
-                const float vj[3] = {vel[j], vel[n + j], vel[2 * n + j]};
-                drho += k.m * ((v1[0] - vj[0]) * gw[0] +
-                               (v1[1] - vj[1]) * gw[1] +
-                               (v1[2] - vj[2]) * gw[2]);
-                if (st[FLU * n + j] < 0.5f) return;   // fluid-fluid below
-                const float rho_j = st[RHO * n + j];
-                const float psi = 2.0f * (rho_j - rho_i) *
-                                  -(d[0] * gw[0] + d[1] * gw[1] +
-                                    d[2] * gw[2]) / (r2 + 1e-12f);
-                diff += k.m * st[IRHO * n + j] * psi;
-                const float wx = k.m / fmaxf(0.5f * (rho_i + rho_j), 1e-9f) *
-                                 cubic_w(q, k.sigma);
-                for (int a = 0; a < 3; ++a) corr[a] += wx * (vj[a] - v1[a]);
-              });
+  const bool walk = mine && flu > 0.5f && live(c, i);
+  float drho = 0.0f, diff = 0.0f, corr[3] = {0.0f, 0.0f, 0.0f};
+  for_pairs_compact<kCdHitDepth, kCdUnroll>(
+      st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h, walk, hits,
+      [&](int j, const float* d, float r2, float r, float q) {
+        const float gf =
+            cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
+        const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
+        const float vj[3] = {vel[j], vel[n + j],
+                             vel[2 * n + j]};
+        drho += k.m * ((v1[0] - vj[0]) * gw[0] +
+                       (v1[1] - vj[1]) * gw[1] +
+                       (v1[2] - vj[2]) * gw[2]);
+        if (st[FLU * n + j] < 0.5f) return;  // fluid-fluid
+        const float rho_j = st[RHO * n + j];
+        const float psi = 2.0f * (rho_j - rho_i) *
+                          -(d[0] * gw[0] + d[1] * gw[1] +
+                            d[2] * gw[2]) / (r2 + 1e-12f);
+        diff += k.m * st[IRHO * n + j] * psi;
+        const float wx =
+            k.m / fmaxf(0.5f * (rho_i + rho_j), 1e-9f) *
+            cubic_w(q, k.sigma);
+        for (int a = 0; a < 3; ++a)
+          corr[a] += wx * (vj[a] - v1[a]);
+      });
+  if (!mine) return;
+  if (walk) {
     rho = rho_i + k.dt * (drho + k.dhc * diff);
     for (int a = 0; a < 3; ++a)
       x1[a] = xi[a] + k.dt * (v1[a] + k.xsph_eps * corr[a]);
@@ -247,8 +273,13 @@ extern "C" int sph_continuity_drift_launch(const float* state,
                                            void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = 256 * kCdHitDepth * static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(sph_continuity_drift_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Cells c{cell, start, count, nx, ny, nz, cap};
-  sph_continuity_drift_kernel<<<blocks_for(n), 256, 0,
+  sph_continuity_drift_kernel<<<blocks_for(n), 256, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       state, vel, c, out, n, *k);
   return static_cast<int>(cudaGetLastError());

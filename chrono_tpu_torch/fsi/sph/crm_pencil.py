@@ -75,8 +75,12 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
       substep_acc(feat, cells) → (feat, acc)  acc (3, N): sweep M's
           acceleration of every valid marker at the pre-substep state
       forces(feat, cells) → acc              sweep M alone (forces_only)
-      outer(feat, cells, n) → (feat, acc)    n substeps in one launch,
-          with the last M sweep's acceleration
+      outer(feat, cells, n) → (feat, acc, overflow)   n substeps in one
+          launch, with the last M sweep's acceleration; overflow () int32
+          is the excess of the most in-support neighbours of a marker over
+          the kernel's list (``ops.cuda.crm_substep.LIST_SLOTS``; 0 when
+          they fit, and the state is the same either way), to be taken
+          into the binning's overflow
       consts                                 the kernels' constants
 
     The JAX engine's contract, with the cell table passed beside the planes
@@ -110,8 +114,8 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
 
     def outer(feat, cells, n_substeps: int):
         out, acc = torch.empty_like(feat), feat.new_empty((3, feat.shape[1]))
-        crm_outer_substeps(feat, cells, consts, n_substeps, out, acc)
-        return out, acc
+        ovf = crm_outer_substeps(feat, cells, consts, n_substeps, out, acc)
+        return out, acc, ovf
 
     return dict(bin=bin_all, substep=substep, substep_acc=substep_acc,
                 forces=forces, outer=outer, consts=consts)

@@ -15,6 +15,9 @@ sweeps hold them (``ops.cuda.sph_substep``).  The kernels
 (``csrc/crm_substep.cu`` and ``csrc/crm_outer.cu``, with the physics in
 ``csrc/crm_sweeps.cuh``) run one thread per marker over the 27 neighbour
 cells and sum each pair from their own side: no atomics, a fixed order.
+``crm_outer`` walks in M only, with the pair body over the compacted hits
+(``for_pairs_compact``, ``csrc/cell_pairs.cuh``), and lists each integrated
+marker's in-support neighbours for G to replay.
 
   M ``crm_momentum``: stress divergence with wall mirroring, artificial
     viscosity and the mixed-pair penalty → the kick of integrated markers,
@@ -24,7 +27,8 @@ cells and sum each pair from their own side: no atomics, a fixed order.
     Jaumann rate, Drucker–Prager return, ρ update and clip, drift
                              state, mv → next state (17, N)
   ``crm_outer_substeps``: n × (M, G) in one cooperative launch, with the
-    last M sweep's acceleration      state → state after n, acc (3, N)
+    last M sweep's acceleration      state → state after n, acc (3, N),
+    and the neighbour list's overflow (a list of K slots a marker, (K, N))
 
 State planes: the TPU kernel's 16 (pos xyz, vel xyz, ρ, σ xx yy zz xy xz
 yz, granular flag, integrate flag, valid) and a derived 1/max(ρ², 1e-9)
@@ -61,6 +65,9 @@ N_MV = 4
  DER) = range(N_STATE)
 # candidate pairs per chunk of the plain twins
 _TWIN_PAIRS = 1 << 24
+# neighbour-list slots a marker in crm_outer (a uniform bed has ~58
+# neighbours inside 2h = 2.4 d0)
+LIST_SLOTS = 128
 
 
 @dataclass(frozen=True)
@@ -236,13 +243,41 @@ def crm_substep_plain(state: torch.Tensor, cells: SortedCells,
     return crm_gradv_stress_plain(state, mv, cells, c), acc
 
 
+def crm_neighbour_counts_plain(state: torch.Tensor, cells: SortedCells,
+                               c: CRMConsts) -> torch.Tensor:
+    """Twin of the whole-outer kernel's list lengths: (N,) int32, the
+    neighbours inside the support (the kernels' test: r² ≤ 4.0004 h² and
+    √(r² + 1e-12)/h < 2) of each integrated valid marker, 0 elsewhere."""
+    move = (state[VAL] > 0.5) & (state[INT] > 0.5)
+    pos = state[PX:PZ + 1].T
+    counts = torch.zeros(state.shape[1], dtype=torch.int32,
+                         device=state.device)
+    for cells_c, i in _rows(cells, move):
+        j, ok, _ = candidates_of(cells_c, i)
+        d = pos[i][:, None, :] - pos[j]
+        r2 = (d * d).sum(-1)
+        inside = (ok & (r2 <= 4.0004 * c.h * c.h)
+                  & (torch.sqrt(r2 + 1e-12) / c.h < 2.0))
+        counts[i] = inside.sum(1).to(torch.int32)
+    return counts
+
+
 def crm_outer_substeps_plain(state: torch.Tensor, cells: SortedCells,
-                             c: CRMConsts, n_substeps: int):
+                             c: CRMConsts, n_substeps: int,
+                             most: torch.Tensor | None = None):
     """Twin of the whole outer step: the per-sweep twins ``n_substeps``
-    times, the last with its acceleration: ``(state, acc (3, N))``."""
-    for _ in range(n_substeps - 1):
-        state, _ = crm_substep_plain(state, cells, c)
-    return crm_substep_plain(state, cells, c, with_acc=True)
+    times, the last with its acceleration: ``(state, acc (3, N))``.  With
+    ``most`` (a () int32 tensor), also raises it in place to the kernel's
+    largest list length over the substeps
+    (:func:`crm_neighbour_counts_plain` before each)."""
+    for s in range(n_substeps):
+        if most is not None:
+            torch.maximum(most, crm_neighbour_counts_plain(state, cells,
+                                                           c).max(),
+                          out=most)
+        state, acc = crm_substep_plain(state, cells, c,
+                                       with_acc=s == n_substeps - 1)
+    return state, acc
 
 
 # ---------------------------------------------------------------- kernels
@@ -263,12 +298,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = {
     "crm_momentum": ("crm_substep", [_P] * 6, []),
     "crm_gradv_stress": ("crm_substep", [_P] * 6, []),
-    "crm_outer": ("crm_outer", [_P] * 8, [_I]),
+    # + order, the list, its lengths, most; n_sub, K
+    "crm_outer": ("crm_outer", [_P] * 12, [_I] * 2),
 }
 
 
-@functools.cache
 def _launcher(name: str):
+    return _bind(name, _build.DEFINES)
+
+
+@functools.cache
+def _bind(name: str, defines: tuple):
+    """The launcher of the build that ``_build.load`` returns under
+    ``defines`` (the cache key: a counter build binds its own)."""
     lib, ptrs, extra = _LAUNCHERS[name]
     fn = getattr(_build.load(lib), f"{name}_launch")
     fn.argtypes = (ptrs + [_I] * 5 + extra
@@ -277,12 +319,15 @@ def _launcher(name: str):
     return fn
 
 
-def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=()):
-    """Check the (label, tensor or None, rows) buffers, none sharing
-    memory with another, and the cell table; launch."""
+def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=(),
+         ints=()):
+    """Check the (label, tensor or None, rows) float buffers and the
+    (label, tensor) int32 ones (already checked by the caller), none
+    sharing memory with another, and the cell table; launch."""
     n = cells.cell.shape[0]
     dev = buffers[0][1].device
     given = [(label, t) for label, t, _ in buffers if t is not None]
+    given += list(ints)
     for label, t, rows in buffers:
         if t is not None:
             check_planes(label, t, rows, n, dev)
@@ -293,6 +338,7 @@ def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=()):
                                  f"{label} and {other} overlap")
     check_cells(cells, dev, N_STATE)
     ptrs = [None if t is None else t.data_ptr() for _, t, _ in buffers]
+    ptrs += [t.data_ptr() for _, t in ints]
     err = _launcher(name)(
         ptrs[0], cells.cell.data_ptr(), cells.start.data_ptr(),
         cells.count.data_ptr(), *ptrs[1:], n, *cells.dims, cells.capacity,
@@ -344,28 +390,70 @@ def crm_gradv_stress(state: torch.Tensor, mv: torch.Tensor,
         raise ValueError(f"no crm_gradv_stress for device {state.device}")
 
 
+def check_list(nbrs: torch.Tensor, state: torch.Tensor) -> None:
+    """Raise unless ``nbrs`` is a contiguous int32 (K, N) neighbour list,
+    K ≥ 1, on the state's device, that the kernel can index."""
+    n = state.shape[1]
+    if nbrs.dtype != torch.int32 or not nbrs.is_contiguous():
+        raise ValueError("nbrs must be contiguous int32")
+    if nbrs.dim() != 2 or nbrs.shape[0] < 1 or nbrs.shape[1] != n:
+        raise ValueError(f"nbrs must be (K, {n}) with K >= 1, got "
+                         f"{tuple(nbrs.shape)}")
+    if nbrs.device != state.device:
+        raise ValueError(f"nbrs must be on {state.device}")
+    if nbrs.numel() >= 2 ** 31:
+        raise ValueError("nbrs is outside the kernel's range")
+
+
 def crm_outer_substeps(state: torch.Tensor, cells: SortedCells,
                        c: CRMConsts, n_substeps: int, out: torch.Tensor,
-                       acc: torch.Tensor) -> None:
+                       acc: torch.Tensor,
+                       nbrs: torch.Tensor | None = None) -> torch.Tensor:
     """out (17, N) ← ``n_substeps`` substeps of ``state`` in one launch;
     acc (3, N) ← the last M sweep's raw acceleration of every valid marker,
-    at its pre-substep state."""
+    at its pre-substep state.  ``nbrs`` (K, N) int32 is scratch for each
+    substep's neighbour list (:data:`LIST_SLOTS` slots when None).
+
+    Returns the list overflow, () int32 on the state's device with no host
+    sync: the most in-support neighbours of an integrated marker over the
+    substeps, less K, clamped at 0.  A marker past K walks its neighbours
+    again in sweep G, so the state is the same either way; the overflow
+    says that K is short."""
     if n_substeps < 1:
         raise ValueError("crm_outer_substeps needs at least one substep")
+    if nbrs is None:
+        nbrs = torch.empty((LIST_SLOTS, state.shape[1]), dtype=torch.int32,
+                           device=state.device)
+    check_list(nbrs, state)
     if state.device.type == "cuda":
         n = state.shape[1]
         spare = torch.empty_like(state)
         mv = state.new_empty((N_MV, n))
+        # the markers to stride over: integrated first, then the other
+        # valid ones (walls), then the rest, each in sorted order
+        valid = state[VAL] > 0.5
+        kick = valid & (state[INT] > 0.5)
+        order = torch.argsort(2 - valid.to(torch.int8) - kick.to(torch.int8),
+                              stable=True).to(torch.int32)
+        n_listed = torch.empty((n,), dtype=torch.int32, device=state.device)
+        most = torch.zeros((n,), dtype=torch.int32, device=state.device)
         _run("crm_outer", [("state", state, N_STATE), ("out", out, N_STATE),
                            ("spare", spare, N_STATE), ("mv", mv, N_MV),
-                           ("acc", acc, 3)], cells, c, (n_substeps,))
+                           ("acc", acc, 3)], cells, c,
+             (n_substeps, nbrs.shape[0]),
+             [("order", order), ("nbrs", nbrs), ("n_listed", n_listed),
+              ("most", most)])
         crm_outer_substeps.launches += 1
+        most = most.max()
     elif state.device.type == "cpu":
-        got, got_acc = crm_outer_substeps_plain(state, cells, c, n_substeps)
+        most = torch.zeros((), dtype=torch.int32)
+        got, got_acc = crm_outer_substeps_plain(state, cells, c, n_substeps,
+                                                most)
         out.copy_(got)
         acc.copy_(got_acc)
     else:
         raise ValueError(f"no crm_outer_substeps for device {state.device}")
+    return torch.clamp(most - nbrs.shape[0], min=0).to(torch.int32)
 
 
 crm_momentum.launches = 0

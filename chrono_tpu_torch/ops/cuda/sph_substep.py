@@ -12,8 +12,10 @@ structure of arrays, with a per-cell ``(start, count)`` table
 (:class:`SortedCells`).  Each sweep is one CUDA kernel
 (``csrc/sph_substep.cu``) that runs one thread per marker over the 27
 neighbour cells and sums each pair from its own side, so it needs no
-atomics and its sum order is fixed.  Each sweep needs the previous one's
-result on every neighbour, so each writes a fresh buffer:
+atomics and its sum order is fixed.  CD scans the candidates first and
+runs its pair body over the hits only (``for_pairs_compact`` in
+``csrc/cell_pairs.cuh``).  Each sweep needs the previous one's result on
+every neighbour, so each writes a fresh buffer:
 
   A  ``sph_adami``: Adami wall BC on solid markers, from their fluid
      neighbours               state (10, N) → adami (7, N)
@@ -317,8 +319,14 @@ class _Consts(ctypes.Structure):
                 + [("g", ctypes.c_float * 3), ("laminar", ctypes.c_int)])
 
 
-@functools.cache
 def _launcher(name: str):
+    return _bind(name, _build.DEFINES)
+
+
+@functools.cache
+def _bind(name: str, defines: tuple):
+    """The launcher of the build that ``_build.load`` returns under
+    ``defines`` (the cache key: a counter build binds its own)."""
     fn = getattr(_build.load("sph_substep"), f"{name}_launch")
     n_in = {"sph_adami": 1, "sph_momentum": 2, "sph_continuity_drift": 2}
     fn.argtypes = ([ctypes.c_void_p] * n_in[name]          # float inputs

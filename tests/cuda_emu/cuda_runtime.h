@@ -1,0 +1,130 @@
+// A CPU stand-in for the parts of the CUDA runtime that the port's pair-walk
+// kernels use, so that tests/test_torch_emulated_walks.py can compile their
+// sources with g++ and run them on CPU threads: one std::thread per CUDA
+// thread, __any_sync on a barrier of the warp's 32 threads, grid.sync() on a
+// barrier of the whole grid, dynamic shared memory per block.  Only what
+// those kernels need; the arithmetic is the host compiler's, so results
+// match the card to rounding, not bit for bit.
+#pragma once
+
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <tuple>
+#include <type_traits>
+#include <utility>
+#include <vector>
+
+using std::max;
+using std::min;
+
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 blockIdx, threadIdx;
+inline dim3 blockDim, gridDim;
+inline thread_local void* emu_smem;   // this block's dynamic shared memory
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorLaunchOutOfResources = 2 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// two "SMs" of one resident block each: a cooperative grid of two blocks
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int,
+                                                          size_t) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+
+inline float fminf(float a, float b) { return std::fmin(a, b); }
+inline float fmaxf(float a, float b) { return std::fmax(a, b); }
+inline float sqrtf(float a) { return std::sqrt(a); }
+inline float powf(float a, float b) { return std::pow(a, b); }
+
+namespace emu {
+
+struct Warp {
+  std::barrier<> bar{32};
+  bool votes[32];
+};
+inline std::vector<std::unique_ptr<Warp>> warps;   // by global warp id
+inline std::unique_ptr<std::barrier<>> grid_barrier;
+
+// Runs fn on grid x block threads: block by block, or every block at once
+// for a cooperative launch (whose grid.sync() needs them all).
+inline void run(dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                std::function<void()> fn, bool cooperative = false) {
+  gridDim = grid;
+  blockDim = block;
+  warps.clear();
+  for (unsigned w = 0; w < grid.x * block.x / 32; ++w)
+    warps.push_back(std::make_unique<Warp>());
+  if (cooperative)
+    grid_barrier = std::make_unique<std::barrier<>>(grid.x * block.x);
+  const unsigned together = cooperative ? grid.x : 1;
+  for (unsigned b0 = 0; b0 < grid.x; b0 += together) {
+    std::vector<std::vector<char>> mem(together,
+                                       std::vector<char>(smem + 16));
+    std::vector<std::thread> threads;
+    for (unsigned b = b0; b < b0 + together; ++b)
+      for (unsigned t = 0; t < block.x; ++t)
+        threads.emplace_back([&, b, t] {
+          blockIdx = dim3(b);
+          threadIdx = dim3(t);
+          emu_smem = mem[b - b0].data();
+          fn();
+        });
+    for (auto& t : threads) t.join();
+  }
+}
+
+template <class... A, size_t... I>
+void call(void (*k)(A...), void** args, std::index_sequence<I...>) {
+  k(*static_cast<std::remove_cv_t<std::remove_reference_t<A>>*>(args[I])...);
+}
+
+template <class... A>
+cudaError_t launch_cooperative(void (*k)(A...), dim3 grid, dim3 block,
+                               void** args, size_t smem, cudaStream_t s) {
+  run(grid, block, smem, s,
+      [&] { call(k, args, std::index_sequence_for<A...>{}); }, true);
+  return cudaSuccess;
+}
+
+}  // namespace emu
+
+inline bool __any_sync(unsigned, bool p) {
+  auto& w = *emu::warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
+  w.votes[threadIdx.x & 31] = p;
+  w.bar.arrive_and_wait();
+  bool any = false;
+  for (bool v : w.votes) any |= v;
+  w.bar.arrive_and_wait();
+  return any;
+}

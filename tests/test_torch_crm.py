@@ -356,7 +356,8 @@ def test_outer_twin_matches_three_gather_steps():
     eng = make_crm_engine(tp, tc, tg, 32, device="cpu")
     feat, order, cells, ovf = eng["bin"](ts)
     assert int(ovf) == 0
-    out, acc = eng["outer"](feat, cells, 3)
+    out, acc, list_ovf = eng["outer"](feat, cells, 3)
+    assert int(list_ovf) == 0
     got = cells_to_crm_state(out, order, ts)
     ratios = _ratios(got, ref, cells_to_markers(acc, order), dv_ref)
     ratios["vel"] /= 3.0

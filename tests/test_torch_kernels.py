@@ -416,13 +416,13 @@ def test_crm_twins_run_on_cpu_without_building(monkeypatch):
     before = _crm_launches()
     out, acc = eng["substep_acc"](feat, cells)
     acc2 = eng["forces"](feat, cells)
-    o2, a2 = eng["outer"](feat, cells, 1)
+    o2, a2, list_ovf = eng["outer"](feat, cells, 1)
     assert _crm_launches() == before
     ref, ref_acc = crm.crm_substep_plain(feat, cells, c, with_acc=True)
     assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
     assert torch.equal(eng["substep"](feat, cells), out)
     assert torch.equal(acc2, acc) and torch.equal(o2, out)
-    assert torch.equal(a2, acc)
+    assert torch.equal(a2, acc) and int(list_ovf) == 0
     walls = feat[crm.INT] < 0.5
     assert torch.equal(out[0:crm.SYZ + 1, walls], feat[0:crm.SYZ + 1, walls])
     assert bool((out[0:3, ~walls] != feat[0:3, ~walls]).any())
@@ -502,6 +502,95 @@ def test_crm_kernels_match_twins_past_capacity(card):
     past = feat[crm.VAL] < 0.5
     assert bool(past.any())
     assert torch.equal(ref[:, past], feat[:, past])
+
+
+def _cap_at_and_past(count: torch.Tensor) -> int:
+    """A capacity that one cell fills exactly while the fullest passes
+    it: the second-largest cell count."""
+    return sorted(set(count[count > 0].tolist()))[-2]
+
+
+def test_crm_outer_checks_its_list():
+    """The whole-outer wrapper refuses a neighbour list of the wrong type,
+    shape, layout or device before it looks at the state's device."""
+    feat, cells, c = _crm_mini_cells("cpu")
+    n = feat.shape[1]
+    meta = torch.empty((crm.N_STATE, n), device="meta")
+    mcells = sph.SortedCells(*(t.to("meta") for t in
+                               (cells.cell, cells.start, cells.count)),
+                             dims=cells.dims, capacity=cells.capacity)
+    out, acc = torch.empty_like(meta), torch.empty((3, n), device="meta")
+    bad = (torch.empty((8, n), dtype=torch.int64, device="meta"),
+           torch.empty((8, n + 1), dtype=torch.int32, device="meta"),
+           torch.empty((0, n), dtype=torch.int32, device="meta"),
+           torch.empty((8 * n,), dtype=torch.int32, device="meta"),
+           torch.empty((n, 8), dtype=torch.int32, device="meta").T,
+           torch.empty((8, n), dtype=torch.int32))
+    for nbrs in bad:
+        with pytest.raises(ValueError, match="nbrs"):
+            crm.crm_outer_substeps(meta, mcells, c, 2, out, acc, nbrs)
+
+
+def test_crm_outer_reports_a_short_list_on_cpu():
+    """On the CPU the whole-outer step counts the neighbours its kernel
+    lists: a list of 16 slots overflows on the mini bed, the engine's
+    default one does not, and the state is the per-sweep twins' either
+    way."""
+    eng, feat, cells = _crm_mini_engine("cpu")
+    c = eng["consts"]
+    out, acc, list_ovf = eng["outer"](feat, cells, 1)
+    ref, ref_acc = crm.crm_substep_plain(feat, cells, c, with_acc=True)
+    assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
+    most = int(crm.crm_neighbour_counts_plain(feat, cells, c).max())
+    assert int(list_ovf) == 0 and crm.LIST_SLOTS > most
+    nbrs = torch.empty((16, feat.shape[1]), dtype=torch.int32)
+    list_ovf = crm.crm_outer_substeps(feat, cells, c, 1, out, acc, nbrs)
+    assert int(list_ovf) == most - 16 > 0
+    assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
+
+
+@pytest.mark.cuda
+def test_crm_outer_short_list_reports_overflow(card):
+    """crm_outer with a list too short for the mini bed reports the
+    overflow and still matches the per-sweep kernels and its twin (a
+    marker past its list walks again); a list that aliases an output is
+    refused."""
+    errs, list_ovf = card.crm_outer_short_list(slots=16)
+    assert list_ovf > 0
+    assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+               for e, r in planes.values())
+    feat, cells, c = _crm_mini_cells("cuda")
+    out, acc = torch.empty_like(feat), feat.new_empty((3, feat.shape[1]))
+    with pytest.raises(ValueError):
+        crm.crm_outer_substeps(feat, cells, c, 1, out, acc,
+                               out.view(torch.int32)[:4])
+
+
+@pytest.mark.cuda
+def test_compacted_walks_match_twins_at_and_past_capacity(card):
+    """CD and crm_outer, whose walks split a run at a cell past its
+    capacity, against their twins (and crm_outer against the per-sweep
+    kernels) where one cell holds exactly C markers and the fullest
+    more."""
+    params, grid, state = card.mini_dam("artificial", device="cuda")
+    c = sph.sph_static_params(params)
+    cap = _cap_at_and_past(state_to_cells(grid, 32, state, c)[2].count)
+    feat, _, cells, ovf = state_to_cells(grid, cap, state, c)
+    assert int(ovf) > 0 and bool((cells.count == cap).any())
+    errs, _ = card.sph_sweeps_vs_twins(feat, cells, c, f"C = {cap}")
+    assert all(np.isfinite(e) and r <= 1.0
+               for e, r in errs["sph_continuity_drift"].values())
+    from chrono_tpu_torch.fsi.sph.crm_pencil import crm_state_to_cells
+    params, soil, grid, state = card.crm_bed((0.4, 0.2), 0.1, 0.02)
+    cap = _cap_at_and_past(crm_state_to_cells(grid, 32, state)[2].count)
+    feat, _, cells, ovf = crm_state_to_cells(grid, cap, state)
+    assert int(ovf) > 0 and bool((cells.count == cap).any())
+    c = crm.crm_static_params(params, soil)
+    errs, list_ovf, _ = card.crm_outer_vs_sweeps(feat, cells, c, 4,
+                                                 f"C = {cap}")
+    assert list_ovf == 0
+    assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
+               for e, r in planes.values())
 
 
 def _nsc_launches():
