@@ -30,8 +30,8 @@ once) and then runs:
    through ``make_sph_advance_pencil``, checked for overflow, finite values,
    immobile boundary markers, fluid density bounds and launch counts; then
    each sweep against its twin at those shapes, timed with CUDA events;
-   the body-issue share of B's walk (``for_pairs``) and CD's
-   (``for_pairs_compact``) from the counter build; with ``--profile``, a
+   the body-issue share of B's and CD's walks (both
+   ``for_pairs_compact``) from the counter build; with ``--profile``, a
    ``torch.profiler`` trace of one more cycle: its wall time, the device
    time by kernel and the device's idle share;
 5. CRM parity on the card, on the mini bed of tests/test_torch_crm.py
@@ -69,7 +69,8 @@ once) and then runs:
    device time per launch from the profiler beside CUDA events around
    back-to-back wrapper calls (at this size the host's cost per call is
    the longer); then the same scene at 400,000 spheres (2 warm-up and 5
-   timed steps, a profiled step, each kernel's device time);
+   timed steps, a profiled step that gives each kernel's device time per
+   launch, each kernel against its twin there);
 9. the DEM forces path on the card: ``dem_forces`` against its twin on the
    120-particle box of phase 1 (both friction modes, random velocities and
    spins), and 3 cycles of ``make_cell_dense_advance(backend="pallas")`` on
@@ -991,12 +992,11 @@ def sph_main_path(card, profile):
                                              out["cd"]),
             lambda: sph.sph_continuity_drift_plain(feat, ref_v, cells, c)),
     }
-    # the body-issue share: B walks with for_pairs the markers and
-    # candidates that CD walked before it ran on the compacted walk
+    # the body-issue share of the two sweeps on the compacted walk
     start = cells.start.long()[cells.cell.long()]
     walkers = int(((feat[sph.FLU] > 0.5) & (torch.arange(n, device=DEV)
                                             - start < C)).sum())
-    for name, what in (("sph_momentum", "for_pairs (B; CD's walk before)"),
+    for name, what in (("sph_momentum", "for_pairs_compact (B)"),
                        ("sph_continuity_drift", "for_pairs_compact (CD)")):
         print(f"{name} at 1M, {what}: " + format_tally(tally_walks(
             ["sph_substep"], n, calls[name][0]), walkers))
@@ -1020,8 +1020,7 @@ def sph_main_path(card, profile):
         rows.append({
             "name": name, "route": "cuda",
             "source": "chrono_tpu_torch/csrc/sph_substep.cu"
-                      + (" (+ cell_pairs.cuh)"
-                         if name == "sph_continuity_drift" else ""),
+                      " (+ cell_pairs.cuh)",
             "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err,
             "max_abs_err_plane": plane, "err_over_tol": over_tol,
@@ -1055,18 +1054,21 @@ def device_events(fn):
 
 def profile_call(what, fn):
     """Trace ``fn``: wall time, device time per kernel name, and the
-    device's idle share of the wall (with the profiler on)."""
+    device's idle share of the wall (with the profiler on).  Returns the
+    device ms and the launches seen by kernel name."""
     wall, events = device_events(fn)
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    by_name = {}
+    by_name, seen = {}, {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
+        seen[e.name] = seen.get(e.name, 0) + 1
     print(f"profile, {what}: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy:.3f} ms over {len(events)} device events, idle "
           f"{1 - busy / (wall * 1e3):.4f} of the wall (profiler on)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms  {name[:90]}")
+    return by_name, seen
 
 
 def per_call_events(fn, reps):
@@ -2070,8 +2072,9 @@ def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
 
 
 def mixer_large(card, n_target=400_000):
-    """The same scene at 400,000 spheres, 2 warm-up and 5 timed steps, and
-    each kernel's time there: where the kernels, not the launches, set the
+    """The same scene at 400,000 spheres, 2 warm-up and 5 timed steps, a
+    profiled step (each kernel's device time per launch), and each kernel
+    against its twin there: where the kernels, not the launches, set the
     pace."""
     p, grid, walls, pts, spin = mixer_scene(n_target)
     n = len(pts)
@@ -2081,33 +2084,31 @@ def mixer_large(card, n_target=400_000):
     require(int(ovf) == 0 and all(bool(torch.isfinite(a).all()) for a in
                                   (pos, vel, om)),
             f"{n} spheres: overflow {int(ovf)} or non-finite state")
-    profile_call(f"one mixer step at {n}", lambda: adv(
+    # each kernel's device time per launch over a profiled step (the
+    # launches of a DVI step, with its own multipliers)
+    by_name, seen = profile_call(f"one mixer step at {n}", lambda: adv(
         pos, vel, om, 1, theta0=[7 * p.dt * spin]))
+    ms = {}
+    for k in NSC_KERNELS:
+        names = [name for name in by_name if f"{k}_kernel" in name]
+        launched = sum(seen[name] for name in names)
+        require(launched > 0, f"the profiler saw no {k} launch in a step "
+                f"at {n}")
+        ms[k] = sum(by_name[name] for name in names) / launched
     pos_s, ufree, cells, _ = nsc_bin(grid, pos, vel, om, p)
     contacts, _ = count_pairs(pos_s, cells, p.radius, p.envelope)
     c = nsc_static_params(p, walls)
     cs = nsc_blade_cs(walls, 7 * p.dt * spin)
-    dc = nd.DetectConsts.of(p.radius, p.envelope)
-    part, _ = nd.nsc_detect(pos_s, cells, 6, dc)
-    rev = nd.reverse_table(part)
-    W = len(walls)
-    g = torch.zeros((3, n, 6), device=DEV)
-    wg = torch.zeros((3, n, W), device=DEV)
-    u = torch.empty_like(ufree)
-    gout, wout = torch.empty_like(g), torch.empty_like(wg)
-    calls = {
-        "nsc_detect": lambda: nd.nsc_detect(pos_s, cells, 6, dc),
-        "nsc_sweep_u": lambda: ns.nsc_sweep_u(
-            pos_s, ufree, g, g, wg, wg, 0.3, part, rev, cs, c, u),
-        "nsc_sweep_g": lambda: ns.nsc_sweep_g(
-            pos_s, ufree, g, g, wg, wg, 0.3, part, cs, c, gout, wout)}
-    ms = {k: kernel_device_ms(f, f"{k}_kernel", 20) for k, f in calls.items()}
+    # each kernel against its twin here too, as at 40,000
+    errs, inp = nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, 6,
+                                     f"mixer {n}")
+    print(f"NSC kernels vs twins at {n}: {format_errs(errs)}")
     rate = p.n_iter * 5 / wall
     print(f"NSC mixer {n}: grid {grid.dims}, ovf 0, {contacts} contacts, "
           f"blade torque about x {float(wtorque[5, 0]):.6f} N·m; 5 steps in "
           f"{wall:.4f} s = {rate:.6e} DVI iterations/s, "
           f"{wall / 5 * 1e3:.4f} ms/step, RTF {wall / (5 * p.dt):.4f}; "
-          "device time per launch: "
+          "device time per launch in the profiled step: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
           + f" on {card}")
 

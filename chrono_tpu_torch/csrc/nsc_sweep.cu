@@ -1,6 +1,6 @@
 // The two sweeps of one APGD iteration of the NSC/DVI cone-complementarity
-// solve, on cell-sorted bodies with single-sided multipliers, one thread per
-// body.
+// solve, on cell-sorted bodies with single-sided multipliers: U one thread
+// per body, G one thread per multiplier row.
 //
 // Replaces the TPU kernels chrono_tpu/ops/pallas/nsc_half_kernel.py
 // nsc_half_sweep_u_pallas / nsc_half_sweep_g_pallas (on _call_half:401), and
@@ -19,18 +19,24 @@
 // t2), so its reaction is -force and +torque of the owner's.  U sums, per
 // body: its owned contacts in slot order, then the contacts that name it as
 // partner (a reverse table sorted by owner and slot), then its walls.  G
-// writes each owned contact's and each wall row's new multipliers.  No
-// atomics; every sum has a fixed order.  G reads U's output of the same
-// iteration and writes fresh buffers: nothing runs in place.
+// writes each owned contact's and each wall row's new multipliers, one row
+// per thread.  No atomics; every sum has a fixed order.  G reads U's output
+// of the same iteration and writes fresh buffers: nothing runs in place.
 //
-// What bounds it: at the bladed mixer (40,000 bodies, ~2.85 contacts owned
+// What bounds them: at the bladed mixer (40,000 bodies, ~2.85 contacts owned
 // per body, 6 walls) U needs ~7 MB and G ~11 MB of traffic, 2-3 us at HBM
-// rate, and ~100-150 flops per contact.  Measured on an NVIDIA H100 80GB HBM3
-// at a 700 W limit, U takes ~8 us and G ~20 us per launch, shorter than the
-// host's cost to issue a launch from Python (40-85 us): the 101 launches of
-// a DVI step set its pace, not the kernels.  At 400,000 bodies G (~0.15 ms,
-// one thread walking six slots serially) is the larger.  Kept simple: no
-// shared-memory staging, one thread per body.
+// rate, and ~100-150 flops per contact.  At 40,000 bodies both are shorter
+// than the host's cost to issue a launch from Python, so the 101 launches
+// of a DVI step set its pace; at 400,000 the kernels do (PERF.md gives the
+// times).  G has no reduction, so it runs over its N (P + W) rows rather
+// than its N bodies: a thread per body walked six slots and six walls in
+// series, at a stride of P or W floats between adjacent threads, with too
+// few threads resident to hide the chains of dependent loads.  What bounds
+// G then is neither its bytes nor its flops: the wall rows (every body
+// against every wall, each row's frame computed before its envelope test)
+// take more than half of it, the contact rows' gathers of the partner's
+// nine planes the rest.  U, a sum per body, keeps one thread per body; no
+// shared-memory staging (staging the walls there gained nothing).
 
 #include <cuda_runtime.h>
 
@@ -116,7 +122,99 @@ nsc_sweep_u_kernel(const float* __restrict__ pos,
   }
 }
 
-__global__ void __launch_bounds__(256)
+// G: one thread per row of its output.  Rows [0, N P) are the contact
+// rows e = i P + p, in the layout of gout; rows [N P, N (P + W)) the wall
+// rows e = i W + w, in the layout of wout.  Each row depends only on its own
+// (gam, gprev) and on the x and u of its two bodies, so no thread waits for
+// another: adjacent threads read partners, gam and gprev and write gout and
+// wout at adjacent addresses, and the threads of one body read its x and u
+// as near-broadcast loads.  An empty slot, or a wall row beyond the
+// envelope, writes its three zeros and ends.  (The wrapper keeps 3 N max(P,
+// W) below 2^31, so the row index N (P + W) fits an int.)  Each row's
+// arithmetic is that of the twin, term by term, as in U.  The wall rows
+// keep wout's order, so a warp mixes walls (and wall kinds); mapping one
+// wall per warp instead was slower at 400,000 bodies, its stores strided
+// by W (PERF.md).
+__device__ __forceinline__ void g_contact_row(
+    const float* __restrict__ pos, const float* __restrict__ u,
+    const float* __restrict__ g, const float* __restrict__ gp,
+    const int* __restrict__ partners, float* __restrict__ gout, int n,
+    int P, int e, float beta, const NscParams& k) {
+  const int np = n * P;
+  const int j = partners[e];
+  if (j < 0) {
+    for (int c = 0; c < 3; ++c) gout[c * np + e] = 0.0f;
+    return;
+  }
+  const int i = e / P;
+  float xi[3], vi[3], wi[3], xj[3], vj[3], wj[3], y[3], gv[3];
+  load3(pos, n, i, xi);
+  load3(u, n, i, vi);
+  load3(u + 3 * n, n, i, wi);
+  load3(pos, n, j, xj);
+  load3(u, n, j, vj);
+  load3(u + 3 * n, n, j, wj);
+  const Frame fr = pair_frame(xi, xj, k.radius);
+  pair_velocity(fr, vi, vj, wi, wj, gv);
+  const float bn = contact_rhs(fr.gap, k);
+  // the diagonal 2 inv_m + 2 arm^2 inv_I with its sum fused explicitly:
+  // contraction is otherwise the compiler's choice, which changes with the
+  // kernel's shape and moves s by an ulp where arm is below the radius
+  // (overlapping pairs); PERF.md
+  const float s =
+      k.omega / __fmaf_rn(2.0f * fr.arm * fr.arm, k.inv_I, 2.0f * k.inv_m);
+  extrapolate(g, gp, np, e, beta, y);
+  float pn = y[0] - s * (gv[0] - bn), pu = y[1] - s * gv[1];
+  float pv = y[2] - s * gv[2];
+  cone_project(pn, pu, pv, k.mu);
+  gout[e] = pn;
+  gout[np + e] = pu;
+  gout[2 * np + e] = pv;
+}
+
+__device__ __forceinline__ void g_wall_row(
+    const float* __restrict__ pos, const float* __restrict__ u,
+    const float* __restrict__ wg, const float* __restrict__ wgp,
+    const float* __restrict__ cs, float* __restrict__ wout, int n, int e,
+    float beta, const NscParams& k) {
+  const int W = k.n_walls, nw = n * W;
+  const int i = e / W;
+  const NscWall& wall = k.walls[e - i * W];
+  float xi[3], vi[3], wi[3], vs[3], y[3], gv[3];
+  load3(pos, n, i, xi);
+  const Frame fr = wall_frame(wall, xi, k.radius, cs, vs);
+  if (!(fr.gap < k.envelope)) {
+    for (int c = 0; c < 3; ++c) wout[c * nw + e] = 0.0f;
+    return;
+  }
+  load3(u, n, i, vi);
+  load3(u + 3 * n, n, i, wi);
+  const float zero3[3] = {0.0f, 0.0f, 0.0f};
+  pair_velocity(fr, vi, vs, wi, zero3, gv);
+  const float bn = contact_rhs(fr.gap, k);
+  float denom = k.inv_m + fr.arm * fr.arm * k.inv_I;
+  if (wall.kind == kRotbox && k.inv_Ib > 0.0f) {
+    // the dynamic blade's rotational compliance rho^2 / I_b
+    const int i1 = (wall.axis + 1) % 3, i2 = (wall.axis + 2) % 3;
+    const float d1 = xi[i1] - wall.a[i1], d2 = xi[i2] - wall.a[i2];
+    denom += (d1 * d1 + d2 * d2) * k.inv_Ib;
+  }
+  const float s = k.omega / denom;
+  extrapolate(wg, wgp, nw, e, beta, y);
+  float pn = y[0] - s * (gv[0] - bn), pu = y[1] - s * gv[1];
+  float pv = y[2] - s * gv[2];
+  cone_project(pn, pu, pv, wall.mu);
+  wout[e] = pn;
+  wout[nw + e] = pu;
+  wout[2 * nw + e] = pv;
+}
+
+// The blocks of 256 an SM should hold: 6 caps G at 40 registers (a few
+// spilled) and hides more of the gathers' latency than 4 blocks at 64
+// registers, 8 blocks spill too much; set by timing on the card (PERF.md).
+constexpr int kGMinBlocks = 6;
+
+__global__ void __launch_bounds__(256, kGMinBlocks)
 nsc_sweep_g_kernel(const float* __restrict__ pos, const float* __restrict__ u,
                    const float* __restrict__ g, const float* __restrict__ gp,
                    const float* __restrict__ wg,
@@ -125,65 +223,12 @@ nsc_sweep_g_kernel(const float* __restrict__ pos, const float* __restrict__ u,
                    const float* __restrict__ cs, float* __restrict__ gout,
                    float* __restrict__ wout, int n, int P, float beta,
                    NscParams k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int np = n * P, nw = n * k.n_walls;
-  float xi[3], vi[3], wi[3], y[3], gv[3];
-  load3(pos, n, i, xi);
-  load3(u, n, i, vi);
-  load3(u + 3 * n, n, i, wi);
-  for (int p = 0; p < P; ++p) {                        // owned contacts
-    const int e = i * P + p;
-    const int j = partners[e];
-    if (j < 0) {
-      for (int c = 0; c < 3; ++c) gout[c * np + e] = 0.0f;
-      continue;
-    }
-    float xj[3], vj[3], wj[3];
-    load3(pos, n, j, xj);
-    load3(u, n, j, vj);
-    load3(u + 3 * n, n, j, wj);
-    const Frame fr = pair_frame(xi, xj, k.radius);
-    pair_velocity(fr, vi, vj, wi, wj, gv);
-    const float bn = contact_rhs(fr.gap, k);
-    const float s =
-        k.omega / (2.0f * k.inv_m + 2.0f * fr.arm * fr.arm * k.inv_I);
-    extrapolate(g, gp, np, e, beta, y);
-    float pn = y[0] - s * (gv[0] - bn), pu = y[1] - s * gv[1];
-    float pv = y[2] - s * gv[2];
-    cone_project(pn, pu, pv, k.mu);
-    gout[e] = pn;
-    gout[np + e] = pu;
-    gout[2 * np + e] = pv;
-  }
-  const float zero3[3] = {0.0f, 0.0f, 0.0f};
-  for (int w = 0; w < k.n_walls; ++w) {                // walls
-    const NscWall& wall = k.walls[w];
-    const int e = i * k.n_walls + w;
-    float vs[3];
-    const Frame fr = wall_frame(wall, xi, k.radius, cs, vs);
-    if (!(fr.gap < k.envelope)) {
-      for (int c = 0; c < 3; ++c) wout[c * nw + e] = 0.0f;
-      continue;
-    }
-    pair_velocity(fr, vi, vs, wi, zero3, gv);
-    const float bn = contact_rhs(fr.gap, k);
-    float denom = k.inv_m + fr.arm * fr.arm * k.inv_I;
-    if (wall.kind == kRotbox && k.inv_Ib > 0.0f) {
-      // the dynamic blade's rotational compliance rho^2 / I_b
-      const int i1 = (wall.axis + 1) % 3, i2 = (wall.axis + 2) % 3;
-      const float d1 = xi[i1] - wall.a[i1], d2 = xi[i2] - wall.a[i2];
-      denom += (d1 * d1 + d2 * d2) * k.inv_Ib;
-    }
-    const float s = k.omega / denom;
-    extrapolate(wg, wgp, nw, e, beta, y);
-    float pn = y[0] - s * (gv[0] - bn), pu = y[1] - s * gv[1];
-    float pv = y[2] - s * gv[2];
-    cone_project(pn, pu, pv, wall.mu);
-    wout[e] = pn;
-    wout[nw + e] = pu;
-    wout[2 * nw + e] = pv;
-  }
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int np = n * P;
+  if (e < np)
+    g_contact_row(pos, u, g, gp, partners, gout, n, P, e, beta, k);
+  else if (e < np + n * k.n_walls)
+    g_wall_row(pos, u, wg, wgp, cs, wout, n, e - np, beta, k);
 }
 
 int blocks_for(int n) { return (n + 255) / 256; }
@@ -220,7 +265,7 @@ extern "C" int nsc_sweep_g_launch(const float* pos, const float* u,
                                   void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nsc_sweep_g_kernel<<<blocks_for(n), 256, 0,
+  nsc_sweep_g_kernel<<<blocks_for(n * (P + k->n_walls)), 256, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       pos, u, g, gp, wg, wgp, partners, cs, gout, wout, n, P, beta, *k);
   return static_cast<int>(cudaGetLastError());

@@ -15,7 +15,7 @@
 // are copied through.
 //
 // Each thread walks the 27 neighbour cells (edge cells skipped) in a fixed
-// order (for_pairs in A and B, for_pairs_compact in CD: cell_pairs.cuh,
+// order (for_pairs in A, for_pairs_compact in B and CD: cell_pairs.cuh,
 // which the CRM sweeps share) and sums every pair onto its own marker only:
 // no atomics, and a deterministic sum.  A pair beyond the kernel support 2h
 // adds exact zeros in the plain twin, so it is skipped (first on r^2 with a
@@ -34,8 +34,9 @@
 // candidate loop (three position loads, served from L1 because the threads
 // of a warp share most neighbour cells, and a distance test) and the ~60
 // flops of each interacting pair bound it, not DRAM: each sweep moves ~70 MB.
-// Inline in the candidate loop (A, B) a warp issues the pair body whenever
-// any lane has a hit; CD, the longest sweep, runs it over compacted hits.
+// Inline in the candidate loop (A, which walks only solid markers) a warp
+// issues the pair body whenever any lane has a hit; B and CD, the long
+// sweeps, run it over compacted hits.
 // No shared-memory staging of the neighbourhood, no half stencil.
 
 #include <cuda_runtime.h>
@@ -106,58 +107,68 @@ sph_adami_kernel(const float* __restrict__ st, Cells c,
 }
 
 // ---- sweep B: momentum + kick (sph_pencil_kernel.py:260-319) ----
-__global__ void __launch_bounds__(256)
+//
+// On the compacted walk, as CD (see there): the pair body runs over each
+// fluid marker's hits only, in for_pairs' order, so each marker sums the
+// same pairs in the same order.  The hit buffer's depth, the scan's stretch
+// and the minimum blocks an SM were set by timing on the card (PERF.md).
+constexpr int kBHitDepth = 40;
+constexpr int kBUnroll = 4;
+constexpr int kBMinBlocks = 3;
+
+__global__ void __launch_bounds__(256, kBMinBlocks)
 sph_momentum_kernel(const float* __restrict__ st,
                     const float* __restrict__ ad, Cells c,
                     float* __restrict__ out, int n, SphConsts k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ int hits[];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool mine = t < n;
+  const int i = mine ? t : n - 1;
   const float v[3] = {st[VX * n + i], st[VY * n + i], st[VZ * n + i]};
+  const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
+  const float pr2_i = ad[A_PR2 * n + i];
+  const float rho_i = ad[A_RHO * n + i];
+  const float irho_i = ad[A_IRHO * n + i];
+  const float eps_h2 = 0.01f * k.h * k.h;
+  const bool walk = mine && st[FLU * n + i] > 0.5f && live(c, i);
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for_pairs_compact<kBHitDepth, kBUnroll>(
+      st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h, walk, hits,
+      [&](int j, const float* d, float r2, float r, float q) {
+        const float gf = cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
+        const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
+        // viscous velocity: the ghost velocity of a solid neighbour
+        const float vij[3] = {v[0] - ad[A_VBX * n + j],
+                              v[1] - ad[A_VBY * n + j],
+                              v[2] - ad[A_VBZ * n + j]};
+        const float cp = k.m * (pr2_i + ad[A_PR2 * n + j]);
+        for (int a = 0; a < 3; ++a) acc[a] -= cp * gw[a];
+        if (k.laminar) {
+          const float cl = k.m * 2.0f * k.mu * irho_i * ad[A_IRHO * n + j] *
+                           (d[0] * gw[0] + d[1] * gw[1] + d[2] * gw[2]) /
+                           (r2 + eps_h2);
+          for (int a = 0; a < 3; ++a) acc[a] += cl * vij[a];
+        } else {
+          const float vr = vij[0] * d[0] + vij[1] * d[1] + vij[2] * d[2];
+          if (vr < 0.0f) {
+            const float mu_ij = k.h * vr / (r2 + eps_h2);
+            const float pi = -k.alpha_visc * k.c_s * mu_ij /
+                             (0.5f * (rho_i + ad[A_RHO * n + j]));
+            for (int a = 0; a < 3; ++a) acc[a] -= k.m * pi * gw[a];
+          }
+        }
+      });
+  if (!mine) return;
   float v1[3] = {v[0], v[1], v[2]};
-  if (st[FLU * n + i] > 0.5f && live(c, i)) {
-    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
-    const float pr2_i = ad[A_PR2 * n + i];
-    const float rho_i = ad[A_RHO * n + i];
-    const float irho_i = ad[A_IRHO * n + i];
-    const float eps_h2 = 0.01f * k.h * k.h;
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
-              [&](int j, const float* d, float r2, float r, float q) {
-                const float gf =
-                    cubic_dwdr(q, k.h, k.sigma) / fmaxf(r, 1e-12f);
-                const float gw[3] = {gf * d[0], gf * d[1], gf * d[2]};
-                // viscous velocity: the ghost velocity of a solid neighbour
-                const float vij[3] = {v[0] - ad[A_VBX * n + j],
-                                      v[1] - ad[A_VBY * n + j],
-                                      v[2] - ad[A_VBZ * n + j]};
-                const float cp = k.m * (pr2_i + ad[A_PR2 * n + j]);
-                for (int a = 0; a < 3; ++a) acc[a] -= cp * gw[a];
-                if (k.laminar) {
-                  const float cl = k.m * 2.0f * k.mu * irho_i *
-                                   ad[A_IRHO * n + j] *
-                                   (d[0] * gw[0] + d[1] * gw[1] +
-                                    d[2] * gw[2]) / (r2 + eps_h2);
-                  for (int a = 0; a < 3; ++a) acc[a] += cl * vij[a];
-                } else {
-                  const float vr = vij[0] * d[0] + vij[1] * d[1] +
-                                   vij[2] * d[2];
-                  if (vr < 0.0f) {
-                    const float mu_ij = k.h * vr / (r2 + eps_h2);
-                    const float pi = -k.alpha_visc * k.c_s * mu_ij /
-                                     (0.5f * (rho_i + ad[A_RHO * n + j]));
-                    for (int a = 0; a < 3; ++a) acc[a] -= k.m * pi * gw[a];
-                  }
-                }
-              });
+  if (walk)
     for (int a = 0; a < 3; ++a) v1[a] = v[a] + k.dt * (acc[a] + k.g[a]);
-  }
   for (int a = 0; a < 3; ++a) out[a * n + i] = v1[a];
 }
 
 // ---- sweep CD: continuity + delta-SPH at the kicked velocities, then XSPH
 // drift with the weight at rho^n (sph_sym_kernel.py:495-555) ----
 //
-// The one sweep on the compacted walk (for_pairs_compact): a fluid marker
+// On the compacted walk (for_pairs_compact), as B: a fluid marker
 // scans its ~680 candidates and runs the pair body over its ~8 % hits only, in
 // for_pairs' order, so each marker sums the same pairs in the same order as
 // before (bit for bit, on the card).  Every lane of a warp takes part in the
@@ -257,8 +268,13 @@ extern "C" int sph_momentum_launch(const float* state, const float* adami,
                                    int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = 256 * kBHitDepth * static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(sph_momentum_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Cells c{cell, start, count, nx, ny, nz, cap};
-  sph_momentum_kernel<<<blocks_for(n), 256, 0,
+  sph_momentum_kernel<<<blocks_for(n), 256, smem,
                         static_cast<cudaStream_t>(stream)>>>(state, adami, c,
                                                              out, n, *k);
   return static_cast<int>(cudaGetLastError());

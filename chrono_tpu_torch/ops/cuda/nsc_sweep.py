@@ -21,7 +21,7 @@ Each contact is stored once, on its owner (see ``ops.cuda.nsc_detect``), as
 view of it is (γn, γu, −γv) with −n, −t1, t2, so its reaction on the
 partner is −force and +torque.  U runs one thread per body over its owned
 contacts, then the contacts that name it as partner (the reverse table),
-then its walls; G one thread per body over its owned contacts and walls.
+then its walls; G one thread per row of its output, a contact's or a wall's.
 Neither needs atomics, and each sums in a fixed order.  The plain twins are
 written with ``ops/nsc_pair.py``; the kernels (``csrc/nsc_sweep.cu``) with
 the same math in ``csrc/nsc_pair.cuh``.
@@ -225,8 +225,14 @@ def _kernel_params(c: NSCConsts) -> _Params:
     return k
 
 
-@functools.cache
 def _launcher(name: str):
+    return _bind(name, _build.DEFINES)
+
+
+@functools.cache
+def _bind(name: str, defines: tuple):
+    """The launcher of the build that ``_build.load`` returns under
+    ``defines`` (the cache key: each build binds its own)."""
     fn = getattr(_build.load("nsc_sweep"), f"{name}_launch")
     n_ptr = {"nsc_sweep_u": 12, "nsc_sweep_g": 10}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr

@@ -1,10 +1,10 @@
 // A CPU stand-in for the parts of the CUDA runtime that the port's pair-walk
-// kernels use, so that tests/test_torch_emulated_walks.py can compile their
-// sources with g++ and run them on CPU threads: one std::thread per CUDA
-// thread, __any_sync on a barrier of the warp's 32 threads, grid.sync() on a
-// barrier of the whole grid, dynamic shared memory per block.  Only what
-// those kernels need; the arithmetic is the host compiler's, so results
-// match the card to rounding, not bit for bit.
+// kernels and the NSC sweeps use, so that tests/test_torch_emulated_walks.py
+// can compile their sources with g++ and run them on CPU threads: one
+// std::thread per CUDA thread, __any_sync on a barrier of the warp's 32
+// threads, grid.sync() on a barrier of the whole grid, dynamic shared memory
+// per block.  Only what those kernels need; the arithmetic is the host
+// compiler's, so results match the card to rounding, not bit for bit.
 #pragma once
 
 #include <algorithm>
@@ -66,6 +66,10 @@ inline float fminf(float a, float b) { return std::fmin(a, b); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float sqrtf(float a) { return std::sqrt(a); }
 inline float powf(float a, float b) { return std::pow(a, b); }
+inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+inline float __fmaf_rn(float a, float b, float c) {
+  return std::fma(a, b, c);
+}
 
 namespace emu {
 

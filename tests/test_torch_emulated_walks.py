@@ -1,15 +1,17 @@
-"""The CUDA sources of the compacted pair walk, run on the CPU.
+"""The CUDA sources of the compacted pair walk and of the NSC sweeps, run on
+the CPU.
 
-``csrc/sph_substep.cu``, ``csrc/crm_substep.cu`` and ``csrc/crm_outer.cu``
-are compiled with g++ against ``tests/cuda_emu`` (one CPU thread per CUDA
-thread, warp votes and grid barriers on ``std::barrier``) and launched
-through the wrappers' own ctypes signatures on CPU tensors.  So the walk's
-logic (the nine runs and the cell cap, the warp votes, the hit buffer and
-its flushes, ``crm_outer``'s neighbour list and its overflow) is held here
-to the plain twins and to the per-sweep kernels, without a card.  The
-arithmetic is the host compiler's: the kernels match the twins to the
-tolerances ``chip_smoke.py`` holds the card to, and each other bit for bit
-where they run the same code.  Skips without g++.
+``csrc/sph_substep.cu``, ``csrc/crm_substep.cu``, ``csrc/crm_outer.cu`` and
+``csrc/nsc_sweep.cu`` are compiled with g++ against ``tests/cuda_emu`` (one
+CPU thread per CUDA thread, warp votes and grid barriers on
+``std::barrier``) and launched through the wrappers' own ctypes signatures
+on CPU tensors.  So the walk's logic (the nine runs and the cell cap, the
+warp votes, the hit buffer and its flushes, ``crm_outer``'s neighbour list
+and its overflow) and NSC G's rows (contact rows, empty slots, wall rows of
+each kind) are held here to the plain twins and to the per-sweep kernels,
+without a card.  The arithmetic is the host compiler's: the kernels match
+the twins to the tolerances ``chip_smoke.py`` holds the card to, and each
+other bit for bit where they run the same code.  Skips without g++.
 """
 
 import ctypes
@@ -29,10 +31,13 @@ from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.fsi.sph.state import FLUID
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
+from chrono_tpu_torch.ops.cuda import nsc_detect as nd
+from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
+from chrono_tpu_torch.solver.nsc_pencil import nsc_static_params
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-SOURCES = ("sph_substep", "crm_substep", "crm_outer")
+SOURCES = ("sph_substep", "crm_substep", "crm_outer", "nsc_sweep")
 
 
 def _for_the_cpu(src: str) -> str:
@@ -50,7 +55,7 @@ def _for_the_cpu(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The three sources built for the CPU, one g++ each, all at once."""
+    """The sources built for the CPU, one g++ each, all at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -107,15 +112,22 @@ def _at_and_past(counts):
     return sorted(set(counts[counts > 0].tolist()))[-2]
 
 
-def _dam(viscosity, at_cap=False):
+def _dam(viscosity, at_cap=False, fluid_past=False):
     """The mini dam of chip_smoke.py's phase 3 on the CPU, binned at C = 32
-    (or, with ``at_cap``, at :func:`_at_and_past`), and kicked fluid
-    velocities."""
+    (or, with ``at_cap``, at :func:`_at_and_past` of the cells' counts, or
+    with ``fluid_past`` too, of the counts of the cells that hold fluid
+    markers, so that fluid markers pass C), and kicked fluid velocities."""
     params, grid, state = cs.mini_dam(viscosity, device="cpu")
     c = sph.sph_static_params(params)
     capacity = 32
     if at_cap:
-        capacity = _at_and_past(state_to_cells(grid, 32, state, c)[2].count)
+        feat, _, cells, _ = state_to_cells(grid, 32, state, c)
+        counts = cells.count
+        if fluid_past:
+            wet = torch.bincount(cells.cell[feat[sph.FLU] > 0.5].long(),
+                                 minlength=counts.numel())
+            counts = torch.where(wet > 0, counts, 0)
+        capacity = _at_and_past(counts)
     feat, _, cells, ovf = state_to_cells(grid, capacity, state, c)
     rng = np.random.default_rng(17)
     fluid = (feat[sph.FLU] > 0.5).double()
@@ -150,6 +162,50 @@ def test_emulated_cd_at_and_past_capacity(libs):
     assert ovf > 0 and bool((cells.count == cells.capacity).any())
     got = _cd(libs, feat, vel, cells, c)
     _cd_close(got, sph.sph_continuity_drift_plain(feat, vel, cells, c), c)
+
+
+def _stirred(feat, cells, c):
+    """The mini dam's planes with random fluid velocities (σ = 0.1 m/s) and
+    densities (±1 %), as chip_smoke.py's phase 3 stirs them, so that
+    pressure and viscosity act in B."""
+    rng = np.random.default_rng(19)
+    fluid = feat[sph.FLU] > 0.5
+    n_f = int(fluid.sum())
+    vel = feat[3:6].T.clone()
+    vel[fluid] = torch.as_tensor(rng.normal(0.0, 0.1, (n_f, 3)),
+                                 dtype=torch.float32)
+    rho = feat[sph.RHO].clone()
+    rho[fluid] *= torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, n_f),
+                                  dtype=torch.float32)
+    return sph.state_planes(feat[0:3].T, vel, rho, fluid, c)
+
+
+@pytest.mark.parametrize("viscosity,at_cap", [("artificial", False),
+                                              ("laminar", False),
+                                              ("artificial", True)])
+def test_emulated_momentum_matches_twin(libs, viscosity, at_cap):
+    """B on the compacted walk against its twin at phase 4's velocity
+    tolerance, for both viscosity modes and with one cell filled exactly to
+    C and the fullest cells of fluid past it; solids and the markers past C
+    keep their velocities bit for bit."""
+    feat, _, cells, c, ovf = _dam(viscosity, at_cap, fluid_past=at_cap)
+    assert (ovf > 0) == at_cap
+    if at_cap:
+        assert bool((cells.count == cells.capacity).any())
+    feat = _stirred(feat, cells, c)
+    adami = sph.sph_adami_plain(feat, cells, c)
+    got = torch.empty((3, feat.shape[1]))
+    _launch(libs, sph, "sph_momentum", feat.data_ptr(), adami.data_ptr(),
+            *_table(cells), got.data_ptr(), feat.shape[1], *cells.dims,
+            cells.capacity, ctypes.byref(c.kernel_params))
+    ref = sph.sph_momentum_plain(feat, adami, cells, c)
+    cs.sph_vel_close(got, ref, f"B {viscosity}")
+    start = cells.start.long()[cells.cell.long()]
+    live = torch.arange(feat.shape[1]) - start < cells.capacity
+    kick = (feat[sph.FLU] > 0.5) & live
+    assert bool((~live & (feat[sph.FLU] > 0.5)).any()) == at_cap
+    assert torch.equal(got[:, ~kick], feat[3:6, ~kick])
+    assert bool((got[:, kick] != feat[3:6, kick]).all(0).any())
 
 
 def _bed(at_cap=False):
@@ -241,3 +297,65 @@ def test_emulated_crm_outer_at_and_past_capacity(libs):
     assert torch.equal(got, ref) and torch.equal(acc, ref_acc)
     past = feat[crm.VAL] < 0.5
     assert bool(past.any()) and torch.equal(got[:, past], feat[:, past])
+
+
+def _mixer(blade_inertia):
+    """A 400-sphere bed of chip_smoke.py's mixer scene under three walls,
+    one of each kind: its floor (gravity along −x) raised 4 mm into reach
+    of the lowest layer, a cylinder about x that the outer spheres touch or
+    overlap, and its blade turned 0.4 rad into the bed; with
+    ``blade_inertia`` > 0 the blade is dynamic (ρ²/I_b on its rows'
+    diagonal).  Returns the G inputs at P = 6 with random velocities (seed
+    7) and multipliers (seed 5)."""
+    p, grid, walls, pts, _ = cs.mixer_scene(400)
+    p = p.replace(blade_inertia=blade_inertia)
+    blade = walls[-1]
+    centre = (0.0, blade[2][1], blade[2][2])
+    rad = np.hypot(pts[:, 1] - centre[1], pts[:, 2] - centre[2])
+    cyl = ("cyl", 0, centre, float(np.quantile(rad, 0.9)) + p.radius, 0.7,
+           0.35)
+    walls = (("plane", (1.0, 0.0, 0.0), 0.004, (0.0, 0.0, 0.0), 0.4), cyl,
+             blade)
+    rng = np.random.default_rng(7)
+    vel, om = rng.normal(0.0, 0.2, pts.shape), rng.normal(0.0, 2.0, pts.shape)
+    pos_s, u, cells, ovf = cs.nsc_bin(grid, pts, vel, om, p,
+                                      device="cpu")
+    assert ovf == 0
+    c = nsc_static_params(p, walls)
+    P, n = 6, pos_s.shape[1]
+    part, _ = nd.nsc_detect_plain(
+        pos_s, cells, P, nd.DetectConsts.of(c.radius, c.envelope))
+    rng = np.random.default_rng(5)
+    valid = (part >= 0).numpy()
+    gam, gprev = (torch.as_tensor(np.where(valid, rng.uniform(
+        -0.005, 0.01, (3, n, P)), 0.0), dtype=torch.float32)
+                  for _ in range(2))
+    wgam, wgprev = (torch.as_tensor(rng.uniform(-0.005, 0.01, (3, n, 3)),
+                                    dtype=torch.float32) for _ in range(2))
+    pose = cs.nsc_blade_cs(walls, 0.4, device="cpu")
+    return pos_s, u, gam, gprev, wgam, wgprev, part, pose, c
+
+
+@pytest.mark.parametrize("blade_inertia", [0.0, 0.05])
+def test_emulated_sweep_g_matches_twin(libs, blade_inertia):
+    """G, one thread per row, against its twin at phase 8's tolerance on a
+    scene with empty partner slots and active rows of each wall kind."""
+    pos_s, u, gam, gprev, wgam, wgprev, part, pose, c = _mixer(blade_inertia)
+    assert (c.inv_Ib > 0.0) == (blade_inertia > 0.0)
+    gout, wout = torch.empty_like(gam), torch.empty_like(wgam)
+    _launch(libs, ns, "nsc_sweep_g", pos_s.data_ptr(), u.data_ptr(),
+            gam.data_ptr(), gprev.data_ptr(), wgam.data_ptr(),
+            wgprev.data_ptr(), part.data_ptr(), pose.data_ptr(),
+            gout.data_ptr(), wout.data_ptr(), part.shape[0], part.shape[1],
+            0.3, ctypes.byref(c.kernel_params))
+    ref, ref_w = ns.nsc_sweep_g_plain(pos_s, u, gam, gprev, wgam, wgprev,
+                                      0.3, part, pose, c)
+    cs.check_close(gout, ref, **cs.NSC_SWEEP_TOL, what="G gamma")
+    cs.check_close(wout, ref_w, **cs.NSC_SWEEP_TOL, what="G wall gamma")
+    empty = part < 0
+    assert bool(empty.any()) and bool((part >= 0).any())
+    assert bool((gout[:, empty] == 0).all())
+    assert bool((ref[:, ~empty] != 0).any())
+    for w in range(3):   # every wall kind has rows inside and beyond reach
+        active = (ref_w[:, :, w] != 0).any(0)
+        assert bool(active.any()) and not bool(active.all())

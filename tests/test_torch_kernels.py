@@ -568,7 +568,7 @@ def test_crm_outer_short_list_reports_overflow(card):
 
 @pytest.mark.cuda
 def test_compacted_walks_match_twins_at_and_past_capacity(card):
-    """CD and crm_outer, whose walks split a run at a cell past its
+    """B, CD and crm_outer, whose walks split a run at a cell past its
     capacity, against their twins (and crm_outer against the per-sweep
     kernels) where one cell holds exactly C markers and the fullest
     more."""
@@ -579,7 +579,8 @@ def test_compacted_walks_match_twins_at_and_past_capacity(card):
     assert int(ovf) > 0 and bool((cells.count == cap).any())
     errs, _ = card.sph_sweeps_vs_twins(feat, cells, c, f"C = {cap}")
     assert all(np.isfinite(e) and r <= 1.0
-               for e, r in errs["sph_continuity_drift"].values())
+               for name in ("sph_momentum", "sph_continuity_drift")
+               for e, r in errs[name].values())
     from chrono_tpu_torch.fsi.sph.crm_pencil import crm_state_to_cells
     params, soil, grid, state = card.crm_bed((0.4, 0.2), 0.1, 0.02)
     cap = _cap_at_and_past(crm_state_to_cells(grid, 32, state)[2].count)
