@@ -49,11 +49,15 @@ once) and then runs:
    overflow, finite values, walls unmoved bit for bit and every granular
    stress inside the Drucker–Prager cone; then the same cycles through
    the engine's whole-outer path (bin, one ``crm_outer`` launch, unbin),
-   its cell and neighbour-list overflow 0; then each kernel against its
-   twin at those shapes, timed with CUDA events, ``crm_outer`` against its
-   8 per-sweep launches in turns, the body-issue share of the two from the
-   counter build, and ``crm_outer`` against its 8 per-sweep launches on
-   the demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05);
+   its cell and neighbour-list overflow 0; then, 3 substeps after a
+   binning, M and G against their twins, M's neighbour list against the
+   twin's walk order and its lengths against ``crm_neighbour_counts_plain``
+   exactly (the markers past its slots counted), each kernel timed with
+   CUDA events beside its bound (the list's and the records' traffic
+   printed apart: it is the design's scratch), ``crm_outer`` against its 8
+   per-sweep launches in turns, the walks' candidates and body issues from
+   the counter build, and ``crm_outer`` against its 8 per-sweep launches
+   on the demo-sized bed (2.0 × 1.2 × 0.15 m at d0 = 0.05);
 7. NSC parity on the card: ``nsc_detect`` (bit for bit), ``nsc_sweep_u``
    and ``nsc_sweep_g`` against their twins on the 24-sphere scene of
    tests/test_nsc_pencil.py under the blade walls at θ = 0.3 (with P = 12,
@@ -1224,20 +1228,38 @@ def crm_state_errs(got, ref, what):
 
 def crm_sweeps_vs_twins(feat, cells, c, what):
     """Each sweep by its kernel and by its twin from the same inputs (G from
-    the twin's M output); M in its three modes, which must agree bit for
-    bit on what they share.  Returns the errors by kernel and plane, and
-    the twins' outputs."""
+    the twin's M output and the kernel M's neighbour list); M in its three
+    modes, which must agree bit for bit on what they share.  M's list must
+    hold each kicked marker's in-support neighbours in the twin's walk
+    order, and their number, exactly.  Returns the errors by kernel and
+    plane, the twins' outputs and the number of markers past the list's
+    slots (their G walks again)."""
     n = feat.shape[1]
     mv, mv2, acc, acc2, out = (feat.new_empty((r, n)) for r in (
         crm.N_MV, crm.N_MV, 3, 3, crm.N_STATE))
+    lists, lists2 = (crm.NeighbourList.empty(n, feat.device)
+                     for _ in range(2))
     ref_mv, ref_acc = crm.crm_momentum_plain(feat, cells, c, with_acc=True)
-    crm.crm_momentum(feat, cells, c, mv=mv)                 # the substep
-    crm.crm_momentum(feat, cells, c, mv=mv2, acc=acc)       # with_acc
+    crm.crm_momentum(feat, cells, c, mv=mv, lists=lists)    # the substep
+    crm.crm_momentum(feat, cells, c, mv=mv2, acc=acc,       # with_acc
+                     lists=lists2)
     crm.crm_momentum(feat, cells, c, acc=acc2)              # forces_only
     require(torch.equal(mv, mv2) and torch.equal(acc, acc2),
             f"{what}: crm_momentum's modes disagree")
+    kick = (feat[crm.VAL] > 0.5) & (feat[crm.INT] > 0.5)
+    slot = torch.arange(crm.LIST_SLOTS, device=feat.device)[:, None]
+    held = (slot < lists.n_listed[None, :]) & kick[None, :]
+    require(torch.equal(lists.n_listed[kick], lists2.n_listed[kick])
+            and torch.equal(lists.nbrs[held], lists2.nbrs[held]),
+            f"{what}: crm_momentum's lists disagree between its modes")
+    ref_nbrs, ref_count = crm.crm_neighbour_list_plain(feat, cells, c)
+    bad = int((lists.n_listed[kick] != ref_count[kick]).sum())
+    require(bad == 0, f"{what}: {bad} of M's list lengths differ from "
+            f"crm_neighbour_counts_plain")
+    require(torch.equal(lists.nbrs[held], ref_nbrs[held]),
+            f"{what}: M's list differs from the twin's walk order")
     ref_out = crm.crm_gradv_stress_plain(feat, ref_mv, cells, c)
-    crm.crm_gradv_stress(feat, ref_mv, cells, c, out)
+    crm.crm_gradv_stress(feat, ref_mv, cells, c, out, lists)
     m, g = f"{what} crm_momentum", f"{what} crm_gradv_stress"
     errs = {
         "crm_momentum": {
@@ -1253,7 +1275,8 @@ def crm_sweeps_vs_twins(feat, cells, c, what):
             and torch.equal(out[crm.SXX:crm.SYZ + 1, still],
                             feat[crm.SXX:crm.SYZ + 1, still]),
             f"{what}: a marker that is not integrated moved")
-    return errs, (ref_mv, ref_acc, ref_out)
+    past = int((lists.n_listed[kick] > crm.LIST_SLOTS).sum())
+    return errs, (ref_mv, ref_acc, ref_out), past
 
 
 def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True,
@@ -1270,11 +1293,12 @@ def crm_outer_vs_sweeps(feat, cells, c, n_sub, what, twin=True,
     list_ovf = int(crm.crm_outer_substeps(feat, cells, c, n_sub, out, acc,
                                           nbrs))
     mv, ref_acc = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n))
+    lists = crm.NeighbourList.empty(n, feat.device)
     cur = feat
     for s in range(n_sub):
         nxt = torch.empty_like(feat)
         crm.crm_substep(cur, cells, c, mv, nxt,
-                        ref_acc if s == n_sub - 1 else None)
+                        ref_acc if s == n_sub - 1 else None, lists)
         cur = nxt
     refs = {"per-sweep kernels": (cur, ref_acc)}
     most = None
@@ -1307,7 +1331,8 @@ def crm_one_substep():
     eng = make_crm_engine(params, soil, grid, 32, device=DEV)
     feat, _, cells, ovf = eng["bin"](state)
     require(int(ovf) == 0, "the mini bed overflows its cells")
-    errs = crm_sweeps_vs_twins(feat, cells, c, "mini bed")[0]
+    errs, _, past = crm_sweeps_vs_twins(feat, cells, c, "mini bed")
+    require(past == 0, f"mini bed: {past} markers past the list")
     outer_errs, list_ovf, _ = crm_outer_vs_sweeps(feat, cells, c, 4,
                                                   "mini bed")
     require(list_ovf == 0, f"mini bed: list overflow {list_ovf}")
@@ -1504,10 +1529,30 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
           f"marker-steps/s; against the per-sweep path after 3 cycles max "
           f"abs err {outer_vs_sweeps:.3e}")
 
-    # each kernel against its twin at the main path's shapes
+    # each kernel against its twin at the main path's shapes: M and G on
+    # the state 3 substeps after binning, as the cycle's last substep
+    # finds it; crm_outer from the binned state
     c = eng["consts"]
     feat, _, cells, _ = eng["bin"](st)
-    errs, (ref_mv, _, _) = crm_sweeps_vs_twins(feat, cells, c, "bed at 1M")
+    lists = crm.NeighbourList.empty(n, DEV)
+    mv = feat.new_empty((crm.N_MV, n))
+    drifted = feat
+    for _ in range(steps - 1):
+        nxt = torch.empty_like(feat)
+        crm.crm_substep(drifted, cells, c, mv, nxt, None, lists)
+        drifted = nxt
+    errs, (ref_mv, _, _), past = crm_sweeps_vs_twins(
+        drifted, cells, c, f"bed at 1M, {steps - 1} substeps after binning")
+    kick = (drifted[crm.VAL] > 0.5) & (drifted[crm.INT] > 0.5)
+    crm.crm_momentum(drifted, cells, c, mv=mv, lists=lists)
+    listed = lists.n_listed[kick].long()
+    print(f"crm_momentum at 1M, {steps - 1} substeps after binning: list "
+          f"lengths equal crm_neighbour_counts_plain for all "
+          f"{int(kick.sum())} kicked markers, and the list is the twin's "
+          f"walk order; {past} markers past the list's {crm.LIST_SLOTS} "
+          f"slots (G walks again for them); mean "
+          f"{float(listed.float().mean()):.4f} and most {int(listed.max())} "
+          f"neighbours a marker")
     outer_errs, list_ovf, most = crm_outer_vs_sweeps(feat, cells, c, steps,
                                                      "bed at 1M")
     require(list_ovf == 0, f"bed at 1M: list overflow {list_ovf}")
@@ -1522,28 +1567,34 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
     bufs = {k: feat.new_empty((r, n)) for k, r in
             (("mv", crm.N_MV), ("g", crm.N_STATE), ("o", crm.N_STATE),
              ("a", 3))}
+    # lists holds M's list of the drifted state, which G replays
     calls = {
         "crm_momentum": (
-            lambda: crm.crm_momentum(feat, cells, c, mv=bufs["mv"]),
-            lambda: crm.crm_momentum_plain(feat, cells, c), 2),
+            lambda: crm.crm_momentum(drifted, cells, c, mv=bufs["mv"],
+                                     lists=lists),
+            lambda: crm.crm_momentum_plain(drifted, cells, c), 2),
         "crm_gradv_stress": (
-            lambda: crm.crm_gradv_stress(feat, ref_mv, cells, c, bufs["g"]),
-            lambda: crm.crm_gradv_stress_plain(feat, ref_mv, cells, c), 2),
+            lambda: crm.crm_gradv_stress(drifted, ref_mv, cells, c,
+                                         bufs["g"], lists),
+            lambda: crm.crm_gradv_stress_plain(drifted, ref_mv, cells, c),
+            2),
         "crm_outer": (
             lambda: crm.crm_outer_substeps(feat, cells, c, steps, bufs["o"],
                                            bufs["a"]),
             lambda: crm.crm_outer_substeps_plain(feat, cells, c, steps), 1),
     }
     # crm_outer against the 8 per-sweep launches it replaces at 1M, in
-    # turns, and the body-issue share of the two
+    # turns, and the walks' tallies of the two
     sweep_bufs = [feat.new_empty((crm.N_STATE, n)) for _ in range(2)]
+    sweep_lists = crm.NeighbourList.empty(n, DEV)
 
     def per_sweep_1m():
         cur = feat
         for s in range(steps):
             nxt = sweep_bufs[s % 2]
             crm.crm_substep(cur, cells, c, bufs["mv"], nxt,
-                            bufs["a"] if s == steps - 1 else None)
+                            bufs["a"] if s == steps - 1 else None,
+                            sweep_lists)
             cur = nxt
 
     turns = [cuda_ms(f, 5) for f in (calls["crm_outer"][0], per_sweep_1m,
@@ -1552,15 +1603,26 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
           f"{2 * steps} per-sweep launches {turns[1]:.4f} / {turns[2]:.4f} "
           f"ms (in turns) on {card}")
     walkers = int(((feat[crm.VAL] > 0.5) & (feat[crm.INT] > 0.5)).sum())
-    for what, fn in (("per-sweep M, G (for_pairs; crm_outer's walks before)",
+    for what, fn in (("per-sweep M, G (M for_pairs_compact, G its list)",
                       per_sweep_1m),
                      ("crm_outer (M for_pairs_compact, G its list)",
                       calls["crm_outer"][0])):
-        print(f"{steps} substeps at 1M, {what}: " + format_tally(
-            tally_walks(["crm_substep", "crm_outer"], n, fn),
-            walkers * steps))
-    pairs = crm_pair_counts(feat, cells, params.h)
+        t = tally_walks(["crm_substep", "crm_outer"], n, fn)
+        print(f"{steps} substeps at 1M, {what}: {t[2] / (walkers * steps):.2f}"
+              f" candidates a walking marker a substep; "
+              + format_tally(t, walkers * steps))
+    pairs = crm_pair_counts(drifted, cells, params.h)
     table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
+    # the bound counts what each function needs (its state, mv and out
+    # planes and the cell table); the design's scratch is printed apart:
+    # the list that M writes and G reads (each kicked marker's first K
+    # neighbours and their number) and the records that each sweep's pack
+    # pass writes and its pair body reads (at least once)
+    list_bytes = 4 * (int(torch.clamp(listed, max=crm.LIST_SLOTS).sum())
+                      + int(kick.sum()))
+    scratch_bytes = {
+        "crm_momentum": list_bytes + 2 * 4 * crm.N_RECORD * n,
+        "crm_gradv_stress": list_bytes + 2 * 4 * crm.N_GRADV_RECORD * n}
     n_bytes = {"crm_momentum": (crm.N_STATE + crm.N_MV) * n * 4 + table,
                "crm_gradv_stress": (2 * crm.N_STATE + crm.N_MV) * n * 4
                + table,
@@ -1580,12 +1642,17 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
         over_tol = max(r for _, r in errs[name].values())
         print(f"{name} at 1M: max abs err {err:.3e} ({plane} plane), "
               f"{over_tol:.3f} of its tolerance, {ms:.4f} ms (plain twin "
-              f"{plain_ms:.4f} ms), {pairs} pairs, bound {bms:.4f} ms by "
-              f"{by}")
+              f"{plain_ms:.4f} ms), {pairs} pairs, {n_bytes[name]} bytes, "
+              f"bound {bms:.4f} ms by {by}"
+              + (f"; list and record scratch {scratch_bytes[name]} bytes"
+                 if name in scratch_bytes else ""))
         rows.append({
             "name": name, "route": "cuda", "source": CRM_SOURCES[name],
             **({"per_sweep_ms": [turns[1], turns[2]]}
                if name == "crm_outer" else {}),
+            **({"scratch_bytes": scratch_bytes[name]}
+               if name in scratch_bytes else {}),
+            **({"past_list": past} if name == "crm_gradv_stress" else {}),
             "replaces": CRM_REPLACES[name],
             "launches": all_launches[name], "max_abs_err": err,
             "max_abs_err_plane": plane, "err_over_tol": over_tol,
@@ -1605,12 +1672,13 @@ def crm_main_path(card, size=(10.0, 4.0), depth=0.2, d0=0.02, C=32):
     out, acc = torch.empty_like(feat), feat.new_empty((3, feat.shape[1]))
     spare, mv = torch.empty_like(feat), feat.new_empty((crm.N_MV,
                                                         feat.shape[1]))
+    lists = crm.NeighbourList.empty(feat.shape[1], DEV)
 
     def per_sweep():
         cur, nxt = feat, out
         for s in range(steps):
             crm.crm_substep(cur, cells, c, mv, nxt,
-                            acc if s == steps - 1 else None)
+                            acc if s == steps - 1 else None, lists)
             cur, nxt = nxt, (spare if nxt is out else out)
 
     outer_ms = cuda_ms(lambda: crm.crm_outer_substeps(

@@ -117,18 +117,26 @@ __device__ __forceinline__ bool live(const Cells& c, int i) {
 // d = x_i - x_j, r2, r = sqrt(r2 + 1e-12) and q = r/h of candidate j, in
 // for_pairs' arithmetic, so that a pair replayed from a list or a hit
 // buffer gets the same bits.
+__device__ __forceinline__ void pair_geometry(const float xj[3],
+                                              const float xi[3], float h,
+                                              float d[3], float& r2,
+                                              float& r, float& q) {
+  d[0] = xi[0] - xj[0];
+  d[1] = xi[1] - xj[1];
+  d[2] = xi[2] - xj[2];
+  r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  r = sqrtf(r2 + 1e-12f);
+  q = r / h;
+}
+
 __device__ __forceinline__ void pair_geometry(const float* px,
                                               const float* py,
                                               const float* pz, int j,
                                               const float xi[3], float h,
                                               float d[3], float& r2,
                                               float& r, float& q) {
-  d[0] = xi[0] - px[j];
-  d[1] = xi[1] - py[j];
-  d[2] = xi[2] - pz[j];
-  r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  r = sqrtf(r2 + 1e-12f);
-  q = r / h;
+  const float xj[3] = {px[j], py[j], pz[j]};
+  pair_geometry(xj, xi, h, d, r2, r, q);
 }
 
 // for_pairs' pairs in for_pairs' order, with the pair body run only over
@@ -222,11 +230,16 @@ __device__ __forceinline__ void for_pairs_compact(
       }
     }
     // candidate jc into the buffer if it lies inside the support, by
-    // for_pairs' two tests as written there (a NaN passes both)
+    // for_pairs' two tests (a NaN passes both).  r^2 is written out as the
+    // fused form nvcc gives for_pairs' d0 d0 + d1 d1 + d2 d2 (equal on
+    // 2^24 random pairs on an H100: PERF.md), so that the test is one
+    // fixed float32 expression, which crm_neighbour_counts_plain
+    // evaluates to the same bits.
     const auto scan = [&](int jc) {
       PAIR_TALLY(0);
       const float d[3] = {xi[0] - px[jc], xi[1] - py[jc], xi[2] - pz[jc]};
-      const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+      const float r2 =
+          __fmaf_rn(d[2], d[2], __fmaf_rn(d[0], d[0], d[1] * d[1]));
       if (r2 > r2_cut) return;
       if (r2 >= r2_in && sqrtf(r2 + 1e-12f) / h >= 2.0f) return;
       mine[held++ * slot] = jc;
@@ -245,19 +258,19 @@ __device__ __forceinline__ void for_pairs_compact(
 }
 
 // Calls pair(j, d, r2, r, q) for the n_listed pairs of a marker that a
-// compacted walk listed, in its order: entry t at row[t * step].
-template <class Pair>
-__device__ __forceinline__ void for_listed_pairs(const float* px,
-                                                 const float* py,
-                                                 const float* pz,
-                                                 const int* row, int step,
+// compacted walk listed, in its order: entry t at row[t * step], with
+// neighbour j's position from pos(j, xj) (a packed record holds the
+// planes' values, so the pairs get the same bits).
+template <class Pos, class Pair>
+__device__ __forceinline__ void for_listed_pairs(const int* row, int step,
                                                  int n_listed,
                                                  const float xi[3], float h,
-                                                 Pair&& pair) {
+                                                 Pos&& pos, Pair&& pair) {
   for (int t = 0; t < n_listed; ++t) {
     const int j = row[t * step];
-    float d[3], r2, r, q;
-    pair_geometry(px, py, pz, j, xi, h, d, r2, r, q);
+    float xj[3], d[3], r2, r, q;
+    pos(j, xj);
+    pair_geometry(xj, xi, h, d, r2, r, q);
     PAIR_TALLY(1);
     pair(j, d, r2, r, q);
   }

@@ -10,8 +10,8 @@
 // pays one instead of 2n.
 //
 // The 2n sweeps run as grid-stride loops over the per-marker device
-// functions of crm_sweeps.cuh (the per-pair bodies and epilogues that the
-// per-sweep kernels of crm_substep.cu share), with cooperative_groups
+// functions of crm_sweeps.cuh (the sweeps that the per-sweep kernels of
+// crm_substep.cu run over another walk), with cooperative_groups
 // grid.sync() between sweeps and the states ping-ponging between two
 // buffers in global memory: M reads state s and writes the kicked
 // velocities, G reads both and writes state s+1 into the other buffer,
@@ -26,6 +26,9 @@
 //     marker also writes its in-support neighbours, in walk order, to a
 //     list (K, N) in global memory, slot-major so that a warp reads one
 //     slot of consecutive markers at once.
+//   - Ahead of each sweep the grid packs the terms that its pair body reads
+//     of a neighbour into one record a marker (crm_sweeps.cuh RecordNbr,
+//     RecordMv), as the per-sweep kernels do, behind a grid.sync().
 //   - Positions change only in G's epilogue, so G finds M's pairs: it
 //     replays M's list instead of walking again.  A marker with more than
 //     K neighbours walks again in G (the same pairs in the same order) and
@@ -47,7 +50,8 @@
 // (PERF.md gives the registers, the spills and the times; 3 blocks an SM was
 // 12 % slower).
 //
-// What bounds it then, on an H100 at the 1.4 M-marker lane: sweep M, ~78 %
+// What bounded it before the records, on an H100 at the 1.4 M-marker
+// lane: sweep M, ~78 %
 // of the time (its scan of ~350 candidates a marker, and in the last
 // substep the walls' walk for the acceleration); G's list replay ~22 %
 // (walking again in G instead costs 16 % more); the SMs wait at the
@@ -69,30 +73,37 @@ constexpr int kOuterMinBlocks = 4;
 
 __global__ void __launch_bounds__(kThreads, kOuterMinBlocks)
 crm_outer_kernel(const float* __restrict__ st0, Cells c, float* out,
-                 float* spare, float* mv, float* acc,
+                 float* spare, float* mv, float* acc, float4* rec,
                  const int* __restrict__ order, int* list, int K,
                  int* n_listed, int* most, int n, int n_sub, CrmConsts k) {
   extern __shared__ int hits[];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
-  const int warp0 = blockIdx.x * blockDim.x + threadIdx.x - lane;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp0 = first - lane;
   const int stride = gridDim.x * blockDim.x;
   const float* cur = st0;
   for (int s = 0; s < n_sub; ++s) {
     float* next = (n_sub - 1 - s) % 2 == 0 ? out : spare;
     float* a = s == n_sub - 1 ? acc : nullptr;
+    for (int i = first; i < n; i += stride)
+      crm::pack_momentum_record(cur, n, i, rec);
+    grid.sync();
     for (int p0 = warp0; p0 < n; p0 += stride) {
       const int p = p0 + lane;
       crm::momentum_listing<kHitDepth, kScanUnroll>(
-          cur, c, n, p < n ? order[p] : -1, k, mv, a, list, K, n_listed,
-          most, hits);
+          cur, c, n, p < n ? order[p] : -1, k, rec, mv, a, list, K,
+          n_listed, most, hits);
     }
+    grid.sync();
+    for (int i = first; i < n; i += stride)
+      crm::pack_gradv_record(cur, mv, n, i, rec);
     grid.sync();
     for (int p0 = warp0; p0 < n; p0 += stride) {
       const int p = p0 + lane;
       crm::gradv_stress_listed<kHitDepth, kScanUnroll>(
-          cur, mv, c, n, p < n ? order[p] : -1, k, next, list, K, n_listed,
-          hits);
+          cur, mv, c, n, p < n ? order[p] : -1, k, crm::RecordMv{rec}, next,
+          list, K, n_listed, hits);
     }
     grid.sync();
     cur = next;
@@ -102,7 +113,8 @@ crm_outer_kernel(const float* __restrict__ st0, Cells c, float* out,
 }  // namespace
 
 // Runs on `stream` and returns a cudaError_t (0 on success).  st0 and out
-// are (17, N), spare (17, N) and mv (4, N) scratch, acc (3, N); order (N,)
+// are (17, N), spare (17, N) and mv (4, N) scratch, acc (3, N); rec
+// scratch of 12 N floats, 16-byte aligned, for the records; order (N,)
 // a permutation of the markers, integrated ones first; list (K, N),
 // n_listed (N,) scratch; most (N,) zeroed, gets each integrated marker's
 // largest in-support neighbour count.  The caller checks shapes, types,
@@ -110,7 +122,8 @@ crm_outer_kernel(const float* __restrict__ st0, Cells c, float* out,
 extern "C" int crm_outer_launch(const float* st0, const int* cell,
                                 const int* start, const int* count,
                                 float* out, float* spare, float* mv,
-                                float* acc, const int* order, int* list,
+                                float* acc, float* rec, const int* order,
+                                int* list,
                                 int* n_listed, int* most, int n, int nx,
                                 int ny, int nz, int cap, int n_sub, int K,
                                 const CrmConsts* k, void* stream,
@@ -134,7 +147,8 @@ extern "C" int crm_outer_launch(const float* st0, const int* cell,
   const int blocks = want < per_sm * sms ? want : per_sm * sms;
   Cells c{cell, start, count, nx, ny, nz, cap};
   CrmConsts kk = *k;
-  void* args[] = {&st0,  &c, &out,      &spare, &mv, &acc,   &order,
+  float4* rec4 = reinterpret_cast<float4*>(rec);
+  void* args[] = {&st0,  &c, &out,      &spare, &mv, &acc,   &rec4, &order,
                   &list, &K, &n_listed, &most,  &n,  &n_sub, &kk};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(crm_outer_kernel), dim3(blocks),

@@ -22,7 +22,7 @@ from chrono_tpu_torch.fsi.sph.kernels import KERNELS
 from chrono_tpu_torch.fsi.sph.pencil import bin_to_cells
 from chrono_tpu_torch.fsi.sph.state import FLUID, FROZEN
 from chrono_tpu_torch.ops.cuda.crm_substep import (
-    N_MV, PX, PZ, RHO, SXX, SYZ, VX, VZ, crm_momentum,
+    N_MV, PX, PZ, RHO, SXX, SYZ, VX, VZ, NeighbourList, crm_momentum,
     crm_outer_substeps, crm_static_params, crm_substep,
 )
 
@@ -71,9 +71,9 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
     """The CRM engine on ``device``: a dict with
 
       bin(st) → (feat (17, N), order, cells, overflow)
-      substep(feat, cells) → feat            one substep, sweeps M and G
-      substep_acc(feat, cells) → (feat, acc)  acc (3, N): sweep M's
-          acceleration of every valid marker at the pre-substep state
+      substep(feat, cells, lists=None) → feat   one substep, sweeps M and G
+      substep_acc(feat, cells, lists=None) → (feat, acc)  acc (3, N): sweep
+          M's acceleration of every valid marker at the pre-substep state
       forces(feat, cells) → acc              sweep M alone (forces_only)
       outer(feat, cells, n) → (feat, acc, overflow)   n substeps in one
           launch, with the last M sweep's acceleration; overflow () int32
@@ -82,6 +82,10 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
           they fit, and the state is the same either way), to be taken
           into the binning's overflow
       consts                                 the kernels' constants
+
+    ``lists`` is scratch for sweep M's neighbour list (a
+    ``NeighbourList``), allocated once by the caller and handed to every
+    substep; without it each substep allocates its own.
 
     The JAX engine's contract, with the cell table passed beside the planes
     (a pencil layout carries it in its shape).  Cells must be at least the
@@ -97,15 +101,15 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
     def bin_all(st: CRMState):
         return crm_state_to_cells(grid, capacity, st.to(device))
 
-    def substep(feat, cells, acc=None):
+    def substep(feat, cells, acc=None, lists=None):
         out, mv = torch.empty_like(feat), feat.new_empty((N_MV,
                                                           feat.shape[1]))
-        crm_substep(feat, cells, consts, mv, out, acc)
+        crm_substep(feat, cells, consts, mv, out, acc, lists)
         return out
 
-    def substep_acc(feat, cells):
+    def substep_acc(feat, cells, lists=None):
         acc = feat.new_empty((3, feat.shape[1]))
-        return substep(feat, cells, acc), acc
+        return substep(feat, cells, acc, lists), acc
 
     def forces(feat, cells):
         acc = feat.new_empty((3, feat.shape[1]))
@@ -131,8 +135,9 @@ def make_crm_substeps_pencil(params, crm: CRMParams, grid: GridSpec,
     def substeps(st: CRMState, n_substeps: int):
         st = st.to(device)
         feat, order, cells, ovf = eng["bin"](st)
+        lists = NeighbourList.empty(feat.shape[1], device)
         for _ in range(n_substeps):
-            feat = eng["substep"](feat, cells)
+            feat = eng["substep"](feat, cells, lists=lists)
         dv = cells_to_markers(eng["forces"](feat, cells), order)
         return cells_to_crm_state(feat, order, st), dv, ovf
 
@@ -148,7 +153,7 @@ def make_crm_advance_pencil(params, crm: CRMParams, grid: GridSpec,
     sweeps each) and unbins them.  ``overflow`` is the largest capacity
     excess seen over the call (0 when every cell fits).  The JAX advance
     discards the reaction ``dv`` of its substeps, so the forces-only sweep
-    is not run here."""
+    is not run here.  Sweep M's neighbour list is allocated once a call."""
     eng = make_crm_engine(params, crm, grid, capacity, device=device)
     steps = params.rebuild_every
     cycle_time = params.dt * steps
@@ -156,10 +161,11 @@ def make_crm_advance_pencil(params, crm: CRMParams, grid: GridSpec,
     def advance(state: CRMState, n_cycles: int):
         state = state.to(device)
         ovf = torch.zeros((), dtype=torch.int32, device=device)
+        lists = NeighbourList.empty(state.n, device)
         for _ in range(n_cycles):
             feat, order, cells, overflow = eng["bin"](state)
             for _ in range(steps):
-                feat = eng["substep"](feat, cells)
+                feat = eng["substep"](feat, cells, lists=lists)
             state = cells_to_crm_state(feat, order, state)
             state = state.replace(time=state.time + cycle_time)
             ovf = torch.maximum(ovf, overflow)

@@ -10,22 +10,23 @@ same physics, which ``chrono_tpu/fsi/sph/crm.py`` ``crm_step`` and
 slot tiers and row trim.
 
 Markers are sorted by cell id and held as a structure of arrays with the
-per-cell ``(start, count)`` table of :class:`SortedCells`, as the SPH
-sweeps hold them (``ops.cuda.sph_substep``).  The kernels
-(``csrc/crm_substep.cu`` and ``csrc/crm_outer.cu``, with the physics in
-``csrc/crm_sweeps.cuh``) run one thread per marker over the 27 neighbour
-cells and sum each pair from their own side: no atomics, a fixed order.
-``crm_outer`` walks in M only, with the pair body over the compacted hits
-(``for_pairs_compact``, ``csrc/cell_pairs.cuh``), and lists each integrated
-marker's in-support neighbours for G to replay.
+per-cell ``(start, count)`` table of the SPH sweeps (:class:`SortedCells`).
+The kernels (``csrc/crm_substep.cu`` and ``csrc/crm_outer.cu``, with the
+physics in ``csrc/crm_sweeps.cuh``) run one thread per marker over the 27
+neighbour cells and sum each pair from their own side: no atomics in a sum,
+a fixed order.  Both scan the candidates first and run the pair body
+over the hits only (``csrc/cell_pairs.cuh``); M lists each integrated
+marker's in-support neighbours (a :class:`NeighbourList`) for G to replay.
+Ahead of each sweep a pack pass writes the terms its pair body reads of a
+neighbour as one record a marker (scratch that the wrapper allocates).
 
   M ``crm_momentum``: stress divergence with wall mirroring, artificial
     viscosity and the mixed-pair penalty → the kick of integrated markers,
     and optionally the raw acceleration of every valid marker
-                             state (17, N) → mv (4, N) and/or acc (3, N)
+                   state (17, N) → mv (4, N) and/or acc (3, N), the list
   G ``crm_gradv_stress``: ∇v and continuity at the kicked velocities →
     Jaumann rate, Drucker–Prager return, ρ update and clip, drift
-                             state, mv → next state (17, N)
+                             state, mv, M's list → next state (17, N)
   ``crm_outer_substeps``: n × (M, G) in one cooperative launch, with the
     last M sweep's acceleration      state → state after n, acc (3, N),
     and the neighbour list's overflow (a list of K slots a marker, (K, N))
@@ -37,7 +38,7 @@ first ``capacity`` markers of a cell: the rest are carried through
 unchanged, and the caller reports the excess as overflow.  mv planes: the
 kicked velocity and 1/max(ρ, 1e-9).  Every function here runs on the
 tensors' device; the ``*_plain`` twins are plain PyTorch, chunked over the
-markers whose pair loop is needed.
+markers whose pair loop is needed, and walk every candidate.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from chrono_tpu_torch.fsi.sph.crm import (
@@ -61,13 +63,34 @@ from chrono_tpu_torch.ops.cuda.sph_substep import (
 
 N_STATE = 17
 N_MV = 4
+# floats a marker of the packed records that M's and G's pair bodies read
+# (csrc/crm_sweeps.cuh RecordNbr, RecordMv)
+N_RECORD = 12
+N_GRADV_RECORD = 8
 (PX, PY, PZ, VX, VY, VZ, RHO, SXX, SYY, SZZ, SXY, SXZ, SYZ, GRN, INT, VAL,
  DER) = range(N_STATE)
 # candidate pairs per chunk of the plain twins
 _TWIN_PAIRS = 1 << 24
-# neighbour-list slots a marker in crm_outer (a uniform bed has ~58
-# neighbours inside 2h = 2.4 d0)
+# neighbour-list slots a marker (a uniform bed has ~58 neighbours inside
+# 2h = 2.4 d0)
 LIST_SLOTS = 128
+
+
+@dataclass(frozen=True)
+class NeighbourList:
+    """Sweep M's list of each kicked marker's in-support neighbours, in
+    walk order, that sweep G replays: the first K in ``nbrs`` (K, N) int32
+    (slot-major: entry t of marker i at ``nbrs[t, i]``), their number,
+    which may pass K, in ``n_listed`` (N,) int32."""
+
+    nbrs: torch.Tensor
+    n_listed: torch.Tensor
+
+    @staticmethod
+    def empty(n: int, device, slots: int = LIST_SLOTS) -> "NeighbourList":
+        return NeighbourList(
+            torch.empty((slots, n), dtype=torch.int32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device))
 
 
 @dataclass(frozen=True)
@@ -243,23 +266,68 @@ def crm_substep_plain(state: torch.Tensor, cells: SortedCells,
     return crm_gradv_stress_plain(state, mv, cells, c), acc
 
 
-def crm_neighbour_counts_plain(state: torch.Tensor, cells: SortedCells,
-                               c: CRMConsts) -> torch.Tensor:
-    """Twin of the whole-outer kernel's list lengths: (N,) int32, the
-    neighbours inside the support (the kernels' test: r² ≤ 4.0004 h² and
-    √(r² + 1e-12)/h < 2) of each integrated valid marker, 0 elsewhere."""
+def _fma32(a, b, c):
+    """float32 fma(a, b, c) with one rounding, as the card's: the float64
+    product of two float32 is exact; the float64 sum is made exact to
+    round-to-odd (its error by TwoSum), whose one rounding to float32 is
+    then the correctly rounded sum (53 ≥ 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _in_support(pos, i, j, ok, h):
+    """Whether candidates j (b, K) of sorted markers i (b,) lie inside the
+    support by the kernels' scan test, to the bit: r² = fma(dz, dz, fma(dx,
+    dx, dy dy)), r² ≤ 4.0004 h² and √(r² + 1e-12)/h < 2, all in float32
+    with true divisions (a division by a Python number may become a product
+    with its reciprocal on the GPU)."""
+    d = pos[i][:, None, :] - pos[j]
+    dx, dy, dz = d.unbind(-1)
+    r2 = _fma32(dz, dz, _fma32(dx, dx, dy * dy))
+    h32 = np.float32(h)
+    cut = float((np.float32(4.0004) * h32) * h32)
+    h_t = torch.tensor([h32], device=pos.device)
+    return ok & (r2 <= cut) & (torch.sqrt(r2 + 1e-12) / h_t < 2.0)
+
+
+def crm_neighbour_list_plain(state: torch.Tensor, cells: SortedCells,
+                             c: CRMConsts, slots: int = LIST_SLOTS):
+    """Twin of sweep M's neighbour list: ``(nbrs (slots, N), n_listed
+    (N,))``, int32, for each integrated valid marker its neighbours inside
+    the support (:func:`_in_support`) in the kernels' walk order (the 27
+    cells in (dx, dy, dz) order, each cell's markers in sorted order), the
+    first ``slots`` of them, and their number; −1 and 0 elsewhere."""
     move = (state[VAL] > 0.5) & (state[INT] > 0.5)
     pos = state[PX:PZ + 1].T
-    counts = torch.zeros(state.shape[1], dtype=torch.int32,
-                         device=state.device)
+    n = state.shape[1]
+    nbrs = torch.full((slots, n), -1, dtype=torch.int32, device=state.device)
+    counts = torch.zeros(n, dtype=torch.int32, device=state.device)
     for cells_c, i in _rows(cells, move):
         j, ok, _ = candidates_of(cells_c, i)
-        d = pos[i][:, None, :] - pos[j]
-        r2 = (d * d).sum(-1)
-        inside = (ok & (r2 <= 4.0004 * c.h * c.h)
-                  & (torch.sqrt(r2 + 1e-12) / c.h < 2.0))
+        inside = _in_support(pos, i, j, ok, c.h)
         counts[i] = inside.sum(1).to(torch.int32)
-    return counts
+        width = j.shape[1]
+        at = torch.where(inside, torch.arange(width, device=j.device), width)
+        at = at.sort(dim=1).values[:, :slots]
+        got = torch.gather(j, 1, at.clamp(max=width - 1))
+        got = torch.where(at < width, got, -1).to(torch.int32)
+        nbrs[:got.shape[1], i] = got.T
+    return nbrs, counts
+
+
+def crm_neighbour_counts_plain(state: torch.Tensor, cells: SortedCells,
+                               c: CRMConsts) -> torch.Tensor:
+    """Twin of the kernels' list lengths: (N,) int32, the neighbours inside
+    the support (the kernels' test, :func:`_in_support`) of each integrated
+    valid marker, 0 elsewhere."""
+    return crm_neighbour_list_plain(state, cells, c, 1)[1]
 
 
 def crm_outer_substeps_plain(state: torch.Tensor, cells: SortedCells,
@@ -296,10 +364,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # each launcher's library, its pointer arguments (the state, the cell
 # table, the other buffers) and its ints after (n, nx, ny, nz, cap)
 _LAUNCHERS = {
-    "crm_momentum": ("crm_substep", [_P] * 6, []),
-    "crm_gradv_stress": ("crm_substep", [_P] * 6, []),
-    # + order, the list, its lengths, most; n_sub, K
-    "crm_outer": ("crm_outer", [_P] * 12, [_I] * 2),
+    # + the records' scratch, mv, acc, the list, its lengths; K
+    "crm_momentum": ("crm_substep", [_P] * 9, [_I]),
+    # + the records' scratch, mv, out, the list, its lengths; K
+    "crm_gradv_stress": ("crm_substep", [_P] * 9, [_I]),
+    # + out, spare, mv, acc, the records' scratch, order, the list, its
+    # lengths, most; n_sub, K
+    "crm_outer": ("crm_outer", [_P] * 13, [_I] * 2),
 }
 
 
@@ -322,12 +393,12 @@ def _bind(name: str, defines: tuple):
 def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=(),
          ints=()):
     """Check the (label, tensor or None, rows) float buffers and the
-    (label, tensor) int32 ones (already checked by the caller), none
+    (label, tensor or None) int32 ones (already checked by the caller), none
     sharing memory with another, and the cell table; launch."""
     n = cells.cell.shape[0]
     dev = buffers[0][1].device
     given = [(label, t) for label, t, _ in buffers if t is not None]
-    given += list(ints)
+    given += [(label, t) for label, t in ints if t is not None]
     for label, t, rows in buffers:
         if t is not None:
             check_planes(label, t, rows, n, dev)
@@ -338,7 +409,7 @@ def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=(),
                                  f"{label} and {other} overlap")
     check_cells(cells, dev, N_STATE)
     ptrs = [None if t is None else t.data_ptr() for _, t, _ in buffers]
-    ptrs += [t.data_ptr() for _, t in ints]
+    ptrs += [None if t is None else t.data_ptr() for _, t in ints]
     err = _launcher(name)(
         ptrs[0], cells.cell.data_ptr(), cells.start.data_ptr(),
         cells.count.data_ptr(), *ptrs[1:], n, *cells.dims, cells.capacity,
@@ -346,48 +417,6 @@ def _run(name, buffers, cells: SortedCells, c: CRMConsts, extra=(),
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def crm_momentum(state: torch.Tensor, cells: SortedCells, c: CRMConsts,
-                 mv: torch.Tensor | None = None,
-                 acc: torch.Tensor | None = None) -> None:
-    """Sweep M on the (17, N) state.  ``mv`` (4, N) ← the kicked
-    velocities and 1/ρ; ``acc`` (3, N) ← the raw acceleration of every
-    valid marker.  Either may be None, not both: ``mv`` alone is the
-    substep, both its ``with_acc`` mode, ``acc`` alone ``forces_only``.
-
-    A CUDA tensor launches the kernel; a CPU tensor runs the twin."""
-    if mv is None and acc is None:
-        raise ValueError("crm_momentum needs mv or acc")
-    if state.device.type == "cuda":
-        _run("crm_momentum", [("state", state, N_STATE), ("mv", mv, N_MV),
-                              ("acc", acc, 3)], cells, c)
-        crm_momentum.launches += 1
-    elif state.device.type == "cpu":
-        got_mv, got_acc = crm_momentum_plain(state, cells, c,
-                                             with_acc=acc is not None)
-        if mv is not None:
-            mv.copy_(got_mv)
-        if acc is not None:
-            acc.copy_(got_acc)
-    else:
-        raise ValueError(f"no crm_momentum for device {state.device}")
-
-
-def crm_gradv_stress(state: torch.Tensor, mv: torch.Tensor,
-                     cells: SortedCells, c: CRMConsts,
-                     out: torch.Tensor) -> None:
-    """Sweep G: out (17, N) ← the next state, from the (4, N) planes of
-    sweep M."""
-    if state.device.type == "cuda":
-        _run("crm_gradv_stress", [("state", state, N_STATE),
-                                  ("mv", mv, N_MV),
-                                  ("out", out, N_STATE)], cells, c)
-        crm_gradv_stress.launches += 1
-    elif state.device.type == "cpu":
-        out.copy_(crm_gradv_stress_plain(state, mv, cells, c))
-    else:
-        raise ValueError(f"no crm_gradv_stress for device {state.device}")
 
 
 def check_list(nbrs: torch.Tensor, state: torch.Tensor) -> None:
@@ -403,6 +432,84 @@ def check_list(nbrs: torch.Tensor, state: torch.Tensor) -> None:
         raise ValueError(f"nbrs must be on {state.device}")
     if nbrs.numel() >= 2 ** 31:
         raise ValueError("nbrs is outside the kernel's range")
+
+
+def _list_args(lists: NeighbourList | None, state: torch.Tensor):
+    """The launchers' (label, tensor) int32 list buffers and K, checked."""
+    if lists is None:
+        return [("nbrs", None), ("n_listed", None)], 0
+    check_list(lists.nbrs, state)
+    t = lists.n_listed
+    if (t.dtype != torch.int32 or not t.is_contiguous()
+            or tuple(t.shape) != (state.shape[1],)
+            or t.device != state.device):
+        raise ValueError(f"n_listed must be contiguous int32 of "
+                         f"({state.shape[1]},) on {state.device}")
+    return [("nbrs", lists.nbrs), ("n_listed", t)], lists.nbrs.shape[0]
+
+
+def crm_momentum(state: torch.Tensor, cells: SortedCells, c: CRMConsts,
+                 mv: torch.Tensor | None = None,
+                 acc: torch.Tensor | None = None,
+                 lists: NeighbourList | None = None) -> None:
+    """Sweep M on the (17, N) state.  ``mv`` (4, N) ← the kicked
+    velocities and 1/ρ; ``acc`` (3, N) ← the raw acceleration of every
+    valid marker.  Either may be None, not both: ``mv`` alone is the
+    substep, both its ``with_acc`` mode, ``acc`` alone ``forces_only``.
+    With ``lists`` (and ``mv``), each kicked marker's in-support neighbours
+    go to it for sweep G.
+
+    A CUDA tensor launches the kernels: one packs each marker's terms that
+    the pair body reads into a record, the other walks the cells.  A CPU
+    tensor runs the twin and leaves ``lists`` as it is: G's twin walks
+    (:func:`crm_neighbour_list_plain` is the list's twin)."""
+    if mv is None and acc is None:
+        raise ValueError("crm_momentum needs mv or acc")
+    if lists is not None and mv is None:
+        raise ValueError("crm_momentum lists only the kicked markers: "
+                         "lists needs mv")
+    if state.device.type == "cuda":
+        ints, K = _list_args(lists, state)
+        # scratch for the neighbours' packed records, marker-major
+        rec = state.new_empty((N_RECORD, state.shape[1]))
+        _run("crm_momentum", [("state", state, N_STATE),
+                              ("rec", rec, N_RECORD), ("mv", mv, N_MV),
+                              ("acc", acc, 3)], cells, c, (K,), ints)
+        crm_momentum.launches += 1
+    elif state.device.type == "cpu":
+        got_mv, got_acc = crm_momentum_plain(state, cells, c,
+                                             with_acc=acc is not None)
+        if mv is not None:
+            mv.copy_(got_mv)
+        if acc is not None:
+            acc.copy_(got_acc)
+    else:
+        raise ValueError(f"no crm_momentum for device {state.device}")
+
+
+def crm_gradv_stress(state: torch.Tensor, mv: torch.Tensor,
+                     cells: SortedCells, c: CRMConsts,
+                     out: torch.Tensor,
+                     lists: NeighbourList | None = None) -> None:
+    """Sweep G: out (17, N) ← the next state, from the (4, N) planes of
+    sweep M and, on the card, the neighbour list that sweep M wrote from
+    the same state (``lists``; a marker past its K slots walks again)."""
+    if state.device.type == "cuda":
+        if lists is None:
+            raise ValueError("crm_gradv_stress replays sweep M's list: "
+                             "lists is needed on the card")
+        ints, K = _list_args(lists, state)
+        rec = state.new_empty((N_GRADV_RECORD, state.shape[1]))
+        _run("crm_gradv_stress", [("state", state, N_STATE),
+                                  ("rec", rec, N_GRADV_RECORD),
+                                  ("mv", mv, N_MV),
+                                  ("out", out, N_STATE)], cells, c, (K,),
+             ints)
+        crm_gradv_stress.launches += 1
+    elif state.device.type == "cpu":
+        out.copy_(crm_gradv_stress_plain(state, mv, cells, c))
+    else:
+        raise ValueError(f"no crm_gradv_stress for device {state.device}")
 
 
 def crm_outer_substeps(state: torch.Tensor, cells: SortedCells,
@@ -437,9 +544,10 @@ def crm_outer_substeps(state: torch.Tensor, cells: SortedCells,
                               stable=True).to(torch.int32)
         n_listed = torch.empty((n,), dtype=torch.int32, device=state.device)
         most = torch.zeros((n,), dtype=torch.int32, device=state.device)
+        rec = state.new_empty((N_RECORD, n))    # the records, M's then G's
         _run("crm_outer", [("state", state, N_STATE), ("out", out, N_STATE),
                            ("spare", spare, N_STATE), ("mv", mv, N_MV),
-                           ("acc", acc, 3)], cells, c,
+                           ("acc", acc, 3), ("rec", rec, N_RECORD)], cells, c,
              (n_substeps, nbrs.shape[0]),
              [("order", order), ("nbrs", nbrs), ("n_listed", n_listed),
               ("most", most)])
@@ -463,9 +571,13 @@ crm_outer_substeps.launches = 0
 
 def crm_substep(state: torch.Tensor, cells: SortedCells, c: CRMConsts,
                 mv: torch.Tensor, out: torch.Tensor,
-                acc: torch.Tensor | None = None) -> None:
+                acc: torch.Tensor | None = None,
+                lists: NeighbourList | None = None) -> None:
     """out ← one substep of ``state`` through the two sweeps; ``mv``
-    (4, N) is scratch; ``acc`` (3, N), if given, ← sweep M's acceleration
-    at the pre-substep state."""
-    crm_momentum(state, cells, c, mv, acc)
-    crm_gradv_stress(state, mv, cells, c, out)
+    (4, N) and ``lists`` (M's neighbour list; allocated here when None) are
+    scratch; ``acc`` (3, N), if given, ← sweep M's acceleration at the
+    pre-substep state."""
+    if lists is None:
+        lists = NeighbourList.empty(state.shape[1], state.device)
+    crm_momentum(state, cells, c, mv, acc, lists)
+    crm_gradv_stress(state, mv, cells, c, out, lists)

@@ -29,6 +29,13 @@ using std::min;
 #define __restrict__
 #define __launch_bounds__(...)
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}

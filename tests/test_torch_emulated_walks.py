@@ -9,9 +9,13 @@ on CPU tensors.  So the walk's logic (the nine runs and the cell cap, the
 warp votes, the hit buffer and its flushes, ``crm_outer``'s neighbour list
 and its overflow) and NSC G's rows (contact rows, empty slots, wall rows of
 each kind) are held here to the plain twins and to the per-sweep kernels,
-without a card.  The arithmetic is the host compiler's: the kernels match
-the twins to the tolerances ``chip_smoke.py`` holds the card to, and each
-other bit for bit where they run the same code.  Skips without g++.
+without a card.  So are the per-sweep CRM M's neighbour list and G's
+replay of it: against the twins, and against ``crm_outer`` bit for bit on a
+state that moved after binning, with a planted fault (a list short of one
+neighbour) that must show.  The arithmetic is the host compiler's: the
+kernels match the twins to the tolerances ``chip_smoke.py`` holds the card
+to, and each other bit for bit where they run the same code.  Skips
+without g++.
 """
 
 import ctypes
@@ -236,15 +240,49 @@ def _outer(libs, feat, cells, c, n_sub, slots):
     kick = valid & (feat[crm.INT] > 0.5)
     order = torch.argsort(2 - valid.to(torch.int8) - kick.to(torch.int8),
                           stable=True).to(torch.int32)
-    nbrs = torch.full((slots, n), -1, dtype=torch.int32)
-    n_listed = torch.empty(n, dtype=torch.int32)
+    lists = _lists(n, slots)
     most = torch.zeros(n, dtype=torch.int32)
+    rec = feat.new_empty((crm.N_RECORD, n))
     _launch(libs, crm, "crm_outer", feat.data_ptr(), *_table(cells),
             out.data_ptr(), spare.data_ptr(), mv.data_ptr(), acc.data_ptr(),
-            order.data_ptr(), nbrs.data_ptr(), n_listed.data_ptr(),
-            most.data_ptr(), n, *cells.dims, cells.capacity, n_sub, slots,
+            rec.data_ptr(), order.data_ptr(), lists.nbrs.data_ptr(),
+            lists.n_listed.data_ptr(), most.data_ptr(), n, *cells.dims,
+            cells.capacity, n_sub, slots, ctypes.byref(c.kernel_params))
+    lists.n_listed[~kick] = -1
+    return out, acc, int(most.max()), lists
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _momentum(libs, feat, cells, c, mv=None, acc=None, lists=None):
+    """Sweep M's emulated kernel."""
+    n = feat.shape[1]
+    rec = feat.new_empty((crm.N_RECORD, n))
+    _launch(libs, crm, "crm_momentum", feat.data_ptr(), *_table(cells),
+            rec.data_ptr(), _ptr(mv), _ptr(acc), _ptr(lists and lists.nbrs),
+            _ptr(lists and lists.n_listed), n, *cells.dims, cells.capacity,
+            lists.nbrs.shape[0] if lists else 0,
             ctypes.byref(c.kernel_params))
-    return out, acc, int(most.max())
+
+
+def _gradv(libs, feat, mv, cells, c, lists):
+    """Sweep G's emulated kernel, replaying ``lists``: the next state."""
+    n = feat.shape[1]
+    out = torch.empty_like(feat)
+    rec = feat.new_empty((crm.N_GRADV_RECORD, n))
+    _launch(libs, crm, "crm_gradv_stress", feat.data_ptr(), *_table(cells),
+            rec.data_ptr(), mv.data_ptr(), out.data_ptr(),
+            lists.nbrs.data_ptr(), lists.n_listed.data_ptr(), n,
+            *cells.dims, cells.capacity, lists.nbrs.shape[0],
+            ctypes.byref(c.kernel_params))
+    return out
+
+
+def _lists(n, slots=crm.LIST_SLOTS):
+    return crm.NeighbourList(torch.full((slots, n), -1, dtype=torch.int32),
+                             torch.full((n,), -1, dtype=torch.int32))
 
 
 def _per_sweep(libs, feat, cells, c, n_sub):
@@ -252,17 +290,12 @@ def _per_sweep(libs, feat, cells, c, n_sub):
     acceleration."""
     n = feat.shape[1]
     mv, acc = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n))
+    lists = _lists(n)
     cur = feat
     for s in range(n_sub):
-        nxt = torch.empty_like(feat)
-        a = acc.data_ptr() if s == n_sub - 1 else None
-        _launch(libs, crm, "crm_momentum", cur.data_ptr(), *_table(cells),
-                mv.data_ptr(), a, n, *cells.dims, cells.capacity,
-                ctypes.byref(c.kernel_params))
-        _launch(libs, crm, "crm_gradv_stress", cur.data_ptr(),
-                *_table(cells), mv.data_ptr(), nxt.data_ptr(), n,
-                *cells.dims, cells.capacity, ctypes.byref(c.kernel_params))
-        cur = nxt
+        _momentum(libs, cur, cells, c, mv, acc if s == n_sub - 1 else None,
+                  lists)
+        cur = _gradv(libs, cur, mv, cells, c, lists)
     return cur, acc
 
 
@@ -273,7 +306,7 @@ def test_emulated_crm_outer_matches_per_sweep_kernels(libs, slots):
     marker past 16 walks again in G; its largest list length is the twin's
     count; it matches the twin to chip_smoke.py's tolerances."""
     feat, cells, c, _ = _bed()
-    got, acc, most = _outer(libs, feat, cells, c, 2, slots)
+    got, acc, most, _ = _outer(libs, feat, cells, c, 2, slots)
     ref, ref_acc = _per_sweep(libs, feat, cells, c, 2)
     assert torch.equal(got, ref) and torch.equal(acc, ref_acc)
     twin_most = torch.zeros((), dtype=torch.int32)
@@ -292,7 +325,7 @@ def test_emulated_crm_outer_at_and_past_capacity(libs):
     their state."""
     feat, cells, c, ovf = _bed(at_cap=True)
     assert ovf > 0 and bool((cells.count == cells.capacity).any())
-    got, acc, _ = _outer(libs, feat, cells, c, 2, crm.LIST_SLOTS)
+    got, acc, _, _ = _outer(libs, feat, cells, c, 2, crm.LIST_SLOTS)
     ref, ref_acc = _per_sweep(libs, feat, cells, c, 2)
     assert torch.equal(got, ref) and torch.equal(acc, ref_acc)
     past = feat[crm.VAL] < 0.5
@@ -359,3 +392,91 @@ def test_emulated_sweep_g_matches_twin(libs, blade_inertia):
     for w in range(3):   # every wall kind has rows inside and beyond reach
         active = (ref_w[:, :, w] != 0).any(0)
         assert bool(active.any()) and not bool(active.all())
+
+
+@pytest.mark.parametrize("at_cap", [False, True])
+def test_emulated_crm_sweeps_match_twins(libs, at_cap):
+    """M on the compacted walk and G on M's list against their twins at phase
+    5's tolerances, at C = 32 and with one cell filled exactly to C and the
+    fullest past it: M's list holds each kicked marker's neighbours in the
+    twin's walk order and their number, exactly; the markers past C keep
+    their state bit for bit."""
+    feat, cells, c, ovf = _bed(at_cap)
+    assert (ovf > 0) == at_cap
+    n = feat.shape[1]
+    mv, acc, lists = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n)), \
+        _lists(n)
+    _momentum(libs, feat, cells, c, mv, acc, lists)
+    ref_mv, ref_acc = crm.crm_momentum_plain(feat, cells, c, with_acc=True)
+    cs.crm_scaled_close(mv[0:3], ref_mv[0:3], 1e-4, 3e-5, "M v")
+    cs.check_close(mv[3], ref_mv[3], **cs.CRM_INV_TOL, what="M 1/rho")
+    cs.crm_scaled_close(acc, ref_acc, 1e-4, 5e-5, "M acc")
+    nbrs, n_listed = crm.crm_neighbour_list_plain(feat, cells, c)
+    kick = (feat[crm.VAL] > 0.5) & (feat[crm.INT] > 0.5)
+    assert torch.equal(lists.n_listed[kick], n_listed[kick])
+    assert bool((lists.n_listed[~kick] == -1).all())
+    assert torch.equal(lists.nbrs[:, kick], nbrs[:, kick])
+    got = _gradv(libs, feat, mv, cells, c, lists)
+    ref = crm.crm_gradv_stress_plain(feat, mv, cells, c)
+    assert all(r <= 1.0 for _, r in cs.crm_state_errs(got, ref,
+                                                      "G").values())
+    past = feat[crm.VAL] < 0.5
+    assert bool(past.any()) == at_cap
+    assert torch.equal(got[:, past], feat[:, past])
+
+
+def _moved():
+    """The stirred bed binned, then its integrated markers moved by up to
+    0.5 h on each axis (uniform, seed 29), as the drift between rebinnings
+    moves them."""
+    feat, cells, c, _ = _bed()
+    rng = np.random.default_rng(29)
+    move = (feat[crm.VAL] > 0.5) & (feat[crm.INT] > 0.5)
+    delta = 0.5 * c.h
+    feat = feat.clone()
+    feat[crm.PX:crm.PZ + 1, move] += torch.as_tensor(
+        rng.uniform(-delta, delta, (3, int(move.sum()))), dtype=torch.float32)
+    return feat, cells, c
+
+
+def _substep(libs, feat, cells, c, slots=crm.LIST_SLOTS):
+    """One substep of the per-sweep kernels, M with its acceleration: the
+    state, the acceleration and M's list."""
+    n = feat.shape[1]
+    mv, acc, lists = feat.new_empty((crm.N_MV, n)), feat.new_empty((3, n)), \
+        _lists(n, slots)
+    _momentum(libs, feat, cells, c, mv, acc, lists)
+    return _gradv(libs, feat, mv, cells, c, lists), acc, lists
+
+
+@pytest.mark.parametrize("slots", [crm.LIST_SLOTS, 16])
+def test_emulated_per_sweep_list_matches_crm_outer(libs, slots):
+    """On a state whose markers moved by up to 0.5 h after binning, the
+    per-sweep M lists crm_outer's neighbours in its order, and M and G give
+    its acceleration and state bit for bit; with 16 slots the markers past
+    them walk again in G, with the same bits."""
+    feat, cells, c = _moved()
+    ref, ref_acc, _, ref_lists = _outer(libs, feat, cells, c, 1,
+                                        crm.LIST_SLOTS)
+    got, acc, lists = _substep(libs, feat, cells, c, slots)
+    assert torch.equal(lists.n_listed, ref_lists.n_listed)
+    held = min(slots, crm.LIST_SLOTS)
+    assert torch.equal(lists.nbrs[:held], ref_lists.nbrs[:held])
+    assert bool((lists.n_listed > slots).any()) == (slots == 16)
+    assert torch.equal(acc, ref_acc) and torch.equal(got, ref)
+
+
+def test_emulated_g_on_a_list_short_of_a_neighbour_differs(libs):
+    """Planted fault: G replaying M's list with each marker's last listed
+    neighbour dropped gives another state (as the test above would see)."""
+    feat, cells, c = _moved()
+    n = feat.shape[1]
+    mv, lists = feat.new_empty((crm.N_MV, n)), _lists(n)
+    _momentum(libs, feat, cells, c, mv, None, lists)
+    ref = _gradv(libs, feat, mv, cells, c, lists)
+    kick = lists.n_listed > 0
+    short = crm.NeighbourList(lists.nbrs, torch.where(
+        kick, lists.n_listed - 1, lists.n_listed).to(torch.int32))
+    got = _gradv(libs, feat, mv, cells, c, short)
+    assert not torch.equal(got, ref)
+    assert torch.equal(got[:, ~kick], ref[:, ~kick])

@@ -467,8 +467,9 @@ def test_crm_wrappers_check_inputs(card):
     feat, cells, c = _crm_mini_cells("cuda")
     n = feat.shape[1]
     mv = feat.new_empty((crm.N_MV, n))
+    lists = crm.NeighbourList.empty(n, "cuda")
     with pytest.raises(ValueError):               # in place
-        crm.crm_gradv_stress(feat, mv, cells, c, feat)
+        crm.crm_gradv_stress(feat, mv, cells, c, feat, lists)
     with pytest.raises(ValueError):               # mv and acc alias
         crm.crm_momentum(feat, cells, c, mv=mv, acc=mv[:3])
     with pytest.raises(ValueError):               # overlap, other start
@@ -477,11 +478,18 @@ def test_crm_wrappers_check_inputs(card):
         crm.crm_momentum(feat.double(), cells, c, mv=mv)
     with pytest.raises(ValueError):               # wrong shape
         crm.crm_gradv_stress(feat, mv[:3].contiguous(), cells, c,
-                             torch.empty_like(feat))
+                             torch.empty_like(feat), lists)
+    with pytest.raises(ValueError):               # no list to replay
+        crm.crm_gradv_stress(feat, mv, cells, c, torch.empty_like(feat))
+    with pytest.raises(ValueError):               # a list without a kick
+        crm.crm_momentum(feat, cells, c, acc=mv[:3], lists=lists)
+    with pytest.raises(ValueError):               # list lengths of int64
+        crm.crm_momentum(feat, cells, c, mv=mv, lists=crm.NeighbourList(
+            lists.nbrs, lists.n_listed.long()))
     with pytest.raises(ValueError):               # no substep
         crm.crm_outer_substeps(feat, cells, c, 0, torch.empty_like(feat),
                                feat.new_empty((3, n)))
-    crm.crm_momentum(feat, cells, c, mv=mv)
+    crm.crm_momentum(feat, cells, c, mv=mv, lists=lists)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(mv).all())
 
@@ -496,7 +504,8 @@ def test_crm_kernels_match_twins_past_capacity(card):
     top = int(crm_state_to_cells(grid, 32, state)[2].count.max())
     feat, _, cells, ovf = crm_state_to_cells(grid, top - 4, state)
     assert int(ovf) == 4
-    errs, (_, _, ref) = card.crm_sweeps_vs_twins(feat, cells, c, "C < max")
+    errs, (_, _, ref), _ = card.crm_sweeps_vs_twins(feat, cells, c,
+                                                     "C < max")
     assert all(np.isfinite(e) and r <= 1.0 for planes in errs.values()
                for e, r in planes.values())
     past = feat[crm.VAL] < 0.5
