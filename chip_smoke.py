@@ -29,8 +29,9 @@ once) and then runs:
    1.25·2h, C = 32, 8 substeps per cycle) for 1 warm-up and 2 timed cycles
    through ``make_sph_advance_pencil``, checked for overflow, finite values,
    immobile boundary markers, fluid density bounds and launch counts; then
-   each sweep against its twin at those shapes, timed with CUDA events;
-   the body-issue share of B's and CD's walks (both
+   each sweep against its twin at those shapes, timed with CUDA events
+   (A with its thread order, the live solids first, made once as the
+   advance makes it); the body-issue share of A's, B's and CD's walks (all
    ``for_pairs_compact``) from the counter build; with ``--profile``, a
    ``torch.profiler`` trace of one more cycle: its wall time, the device
    time by kernel and the device's idle share;
@@ -61,7 +62,9 @@ once) and then runs:
 7. NSC parity on the card: ``nsc_detect`` (bit for bit), ``nsc_sweep_u``
    and ``nsc_sweep_g`` against their twins on the 24-sphere scene of
    tests/test_nsc_pencil.py under the blade walls at θ = 0.3 (with P = 12,
-   and P = 2, which overflows), and two steps of
+   and P = 2, which overflows; U writing the wall masks, as a step's first
+   launch does, which equal their twin's, and U reading them, the two bit
+   for bit), and two steps of
    ``make_nsc_pencil_advance`` on the card against the twins on the CPU for
    the blade scene and the dynamic blade;
 8. the NSC bladed mixer at full width: ``bench_suite.py``'s config #2
@@ -69,12 +72,15 @@ once) and then runs:
    π/3 rad/s, 50 APGD iterations, P = 6, cells of 3.5 r) for 25 warm-up
    and 25 timed steps, checked for overflow, finite values, launch counts,
    a blade torque that resists the spin and the deepest overlap; a
-   profiled step; then each kernel against its twin at those shapes, its
+   profiled step (the profiler must see every launch the wrappers count);
+   then each kernel against its twin at those shapes, its
    device time per launch from the profiler beside CUDA events around
    back-to-back wrapper calls (at this size the host's cost per call is
-   the longer); then the same scene at 400,000 spheres (2 warm-up and 5
-   timed steps, a profiled step that gives each kernel's device time per
-   launch, each kernel against its twin there);
+   the longer); then the same scene at 400,000 spheres (2 warm-up and 20
+   timed steps; profiled runs of one and two steps that give a step's
+   device time and each kernel's device time per launch (U's reading and
+   writing launches apart, beside U's bound); each kernel against its twin
+   there);
 9. the DEM forces path on the card: ``dem_forces`` against its twin on the
    120-particle box of phase 1 (both friction modes, random velocities and
    spins), and 3 cycles of ``make_cell_dense_advance(backend="pallas")`` on
@@ -787,7 +793,7 @@ def sph_sweeps_vs_twins(feat, cells, c, what):
     n = feat.shape[1]
     adami, vel, out = (feat.new_empty((k, n)) for k in (sph.N_ADAMI, 3, 10))
     ref_a = sph.sph_adami_plain(feat, cells, c)
-    sph.sph_adami(feat, cells, c, adami)
+    sph.sph_adami(feat, cells, c, adami, sph.adami_walk_order(feat, cells))
     ref_v = sph.sph_momentum_plain(feat, ref_a, cells, c)
     sph.sph_momentum(feat, ref_a, cells, c, vel)
     ref_o = sph.sph_continuity_drift_plain(feat, ref_v, cells, c)
@@ -916,9 +922,12 @@ SPH_OPS_PER_PAIR = {"sph_adami": 35, "sph_momentum": 80,
 def sph_pair_counts(feat, cells, h):
     """The pairs inside the support 2h that each sweep's function needs:
     A the ordered solid–fluid pairs (solid i, fluid j); B and CD the
-    unordered pairs with at least one fluid marker."""
+    unordered pairs with at least one fluid marker.  Also the number of
+    fluid markers inside the support of a live solid (A needs their
+    positions)."""
     n = feat.shape[1]
     fluid = feat[sph.FLU] > 0.5
+    near_solid = torch.zeros(n, dtype=torch.bool, device=feat.device)
     solid_fluid = fluid_fluid = 0
     step = max(1, (1 << 24) // (27 * cells.capacity))
     for lo in range(0, n, step):
@@ -928,11 +937,35 @@ def sph_pair_counts(feat, cells, h):
         r = torch.sqrt((d * d).sum(0) + 1e-12)
         inside = ok & (r / h < 2.0) & live[:, None]
         fi = fluid[lo:hi, None]
-        solid_fluid += int((inside & ~fi & fluid[j]).sum())
+        sf = inside & ~fi & fluid[j]
+        solid_fluid += int(sf.sum())
         fluid_fluid += int((inside & fi & fluid[j]).sum())
+        near_solid[j[sf]] = True
     unordered = fluid_fluid // 2 + solid_fluid
     return {"sph_adami": solid_fluid, "sph_momentum": unordered,
-            "sph_continuity_drift": unordered}
+            "sph_continuity_drift": unordered}, int(near_solid.sum())
+
+
+def sph_adami_bytes(feat, cells, fluid_near_solid):
+    """The bytes that A's function must move: every marker's kind, v and
+    7 output planes; p of all but the live solids (theirs is summed); ρ of
+    the fluid; the cell of every solid (is it live?) and the (start,
+    count) of the cells around a solid's cell; the positions of the live
+    solids and of the fluid inside their support."""
+    n = feat.shape[1]
+    fluid = feat[sph.FLU] > 0.5
+    start = cells.start.long()[cells.cell.long()]
+    live = torch.arange(n, device=feat.device) - start < cells.capacity
+    n_fluid = int(fluid.sum())
+    n_live_solid = int((~fluid & live).sum())
+    held = torch.zeros(cells.start.numel(), device=feat.device)
+    held[cells.cell.long()[~fluid]] = 1.0
+    around = torch.nn.functional.max_pool3d(
+        held.view(1, 1, *cells.dims), 3, stride=1, padding=1)
+    n_cells = int((around > 0).sum())
+    return 4 * ((1 + 3 + sph.N_ADAMI) * n + (n - n_live_solid) + n_fluid
+                + (n - n_fluid) + 2 * n_cells
+                + 3 * (n_live_solid + fluid_near_solid))
 
 
 def sph_main_path(card, profile):
@@ -985,8 +1018,9 @@ def sph_main_path(card, profile):
           f"{format_errs(errs)}")
     out = {k: feat.new_empty((r, n)) for k, r in
            (("a", sph.N_ADAMI), ("b", 3), ("cd", 10))}
+    order = sph.adami_walk_order(feat, cells)
     calls = {
-        "sph_adami": (lambda: sph.sph_adami(feat, cells, c, out["a"]),
+        "sph_adami": (lambda: sph.sph_adami(feat, cells, c, out["a"], order),
                       lambda: sph.sph_adami_plain(feat, cells, c)),
         "sph_momentum": (
             lambda: sph.sph_momentum(feat, ref_a, cells, c, out["b"]),
@@ -996,17 +1030,20 @@ def sph_main_path(card, profile):
                                              out["cd"]),
             lambda: sph.sph_continuity_drift_plain(feat, ref_v, cells, c)),
     }
-    # the body-issue share of the two sweeps on the compacted walk
+    # the body-issue share of the three sweeps on the compacted walk
     start = cells.start.long()[cells.cell.long()]
-    walkers = int(((feat[sph.FLU] > 0.5) & (torch.arange(n, device=DEV)
-                                            - start < C)).sum())
-    for name, what in (("sph_momentum", "for_pairs_compact (B)"),
-                       ("sph_continuity_drift", "for_pairs_compact (CD)")):
+    live = torch.arange(n, device=DEV) - start < C
+    walkers = int(((feat[sph.FLU] > 0.5) & live).sum())
+    solids = int(((feat[sph.FLU] < 0.5) & live).sum())
+    for name, what, k in (
+            ("sph_adami", "for_pairs_compact over the solids (A)", solids),
+            ("sph_momentum", "for_pairs_compact (B)", walkers),
+            ("sph_continuity_drift", "for_pairs_compact (CD)", walkers)):
         print(f"{name} at 1M, {what}: " + format_tally(tally_walks(
-            ["sph_substep"], n, calls[name][0]), walkers))
-    pairs = sph_pair_counts(feat, cells, params.h)
+            ["sph_substep"], n, calls[name][0]), k))
+    pairs, near_solid = sph_pair_counts(feat, cells, params.h)
     table = n * 4 + 2 * grid.n_cells * 4               # cell, start, count
-    n_bytes = {"sph_adami": (10 + sph.N_ADAMI) * n * 4 + table,
+    n_bytes = {"sph_adami": sph_adami_bytes(feat, cells, near_solid),
                "sph_momentum": (10 + sph.N_ADAMI + 3) * n * 4 + table,
                "sph_continuity_drift": (10 + 3 + 10) * n * 4 + table}
     rows = []
@@ -1019,8 +1056,8 @@ def sph_main_path(card, profile):
         over_tol = max(r for _, r in errs[name].values())
         print(f"{name} at 1M: max abs err {err:.3e} ({plane} plane), "
               f"{over_tol:.3f} of its tolerance, {ms:.4f} ms (plain twin "
-              f"{plain_ms:.4f} ms), {pairs[name]} pairs, bound {bms:.4f} ms "
-              f"by {by}")
+              f"{plain_ms:.4f} ms), {pairs[name]} pairs, {n_bytes[name]} "
+              f"bytes, bound {bms:.4f} ms by {by}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "chrono_tpu_torch/csrc/sph_substep.cu"
@@ -1042,24 +1079,31 @@ def profile_cycle(adv, state):
 
 def device_events(fn):
     """Run ``fn`` under ``torch.profiler``: ``(wall seconds, device
-    events)``."""
+    events)``.  The window opens with a spin kernel (``torch.cuda._sleep``)
+    and a pause before ``fn``, and the spin's events are left out: a kernel
+    launched as the window opens may be missing from its trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return wall, [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
 
 
 def profile_call(what, fn):
     """Trace ``fn``: wall time, device time per kernel name, and the
     device's idle share of the wall (with the profiler on).  Returns the
-    device ms and the launches seen by kernel name."""
+    device ms and the launches seen by kernel name, and the device ms in
+    all."""
     wall, events = device_events(fn)
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     by_name, seen = {}, {}
@@ -1072,7 +1116,7 @@ def profile_call(what, fn):
           f"{1 - busy / (wall * 1e3):.4f} of the wall (profiler on)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms  {name[:90]}")
-    return by_name, seen
+    return by_name, seen, busy
 
 
 def per_call_events(fn, reps):
@@ -1783,9 +1827,17 @@ def nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, P, what, seed=5,
                              0.0)) for _ in range(2))
     wgam, wgprev = (t(rng.uniform(-0.005, 0.01, (3, n, W)))
                     for _ in range(2))
-    u = torch.empty_like(ufree)
+    # U writing the wall masks, as a step's first launch does, then U
+    # reading them: the same u, bit for bit
+    u, u_written = torch.empty_like(ufree), torch.empty_like(ufree)
+    masks = torch.empty(n, dtype=torch.int32, device=DEV)
     ns.nsc_sweep_u(pos_s, ufree, gam, gprev, wgam, wgprev, beta, part, rev,
-                   cs, c, u)
+                   cs, c, u_written, masks, write=True)
+    nsc_masks_check(masks, pos_s, cs, c, what)
+    ns.nsc_sweep_u(pos_s, ufree, gam, gprev, wgam, wgprev, beta, part, rev,
+                   cs, c, u, masks)
+    require(torch.equal(u_written, u),
+            f"{what}: U reading the wall masks differs from U writing them")
     ref_u = ns.nsc_sweep_u_plain(pos_s, ufree, gam, gprev, wgam, wgprev,
                                  beta, part, cs, c)
     gout, wout = torch.empty_like(gam), torch.empty_like(wgam)
@@ -1806,8 +1858,59 @@ def nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, P, what, seed=5,
     require(float((u - ufree).abs().max()) > 1e-4
             and bool((ref_g != 0).any()), f"{what}: no contact acted")
     inputs = dict(part=part, count=count, rev=rev, gam=gam, gprev=gprev,
-                  wgam=wgam, wgprev=wgprev, u=ref_u, beta=beta, dc=dc)
+                  wgam=wgam, wgprev=wgprev, u=ref_u, beta=beta, dc=dc,
+                  masks=masks)
     return errs, inputs
+
+
+def nsc_u_modes(by_name, seen, n):
+    """U's device time per launch by mode (the step's first launch writes
+    the wall masks, the others read them) from a profiled run's ``(device
+    ms, launches)`` by kernel name; printed and returned by mode.  Fails
+    unless both modes ran."""
+    modes = {"<false>": "reading", "<true>": "writing"}
+    out = {}
+    for name in by_name:
+        if "nsc_sweep_u_kernel" in name:
+            mode = next((v for k, v in modes.items() if k in name),
+                        name[:60])
+            out[mode] = by_name[name] / seen[name]
+            print(f"nsc_sweep_u at {n}, {mode} the wall masks: "
+                  f"{out[mode]:.4f} ms of device time per launch over "
+                  f"{seen[name]} launches in the profiled steps")
+    require(set(out) == set(modes.values()),
+            f"U's modes in the profiled steps at {n}: {sorted(out)}")
+    return out
+
+
+def nsc_profile(what, run):
+    """Profile ``run`` (mixer steps): ``(device ms, launches) by kernel
+    name, device ms in all``.  Fails unless the profiler saw every launch
+    of the three NSC kernels that their wrappers counted in the run."""
+    nsc_reset_launches()
+    by_name, seen, busy = profile_call(what, run)
+    for k, counted in nsc_launches().items():
+        got = sum(v for name, v in seen.items() if f"{k}_kernel" in name)
+        require(got == counted, f"{what}: the profiler saw {got} of "
+                f"{counted} {k} launches")
+    return by_name, seen, busy
+
+
+def nsc_masks_check(masks, pos_s, cs, c, what):
+    """U's wall masks against their twin's: equal, except for a body whose
+    gap to a wall lies within 1e-6 m of the envelope (rounding may put it
+    either side).  Prints the bodies within a wall's reach."""
+    twin = ns.wall_masks_plain(pos_s, cs, c)
+    near = torch.zeros_like(masks, dtype=torch.bool)
+    for wall, pose in zip(c.walls, ns.wall_poses(c, cs)):
+        gap = wall_geometry(wall, pos_s[0], pos_s[1], pos_s[2], c.radius,
+                            pose)[1]
+        near |= (gap - c.envelope).abs() < 1e-6
+    off = int(((masks != twin) & ~near).sum())
+    require(off == 0, f"{what}: {off} wall masks differ from the twin's")
+    print(f"{what}: wall masks equal the twin's ({int(near.sum())} bodies "
+          f"at an envelope's edge), {int(masks.bool().sum())} of "
+          f"{masks.numel()} bodies within a wall's reach")
 
 
 def nsc_sweep_scene():
@@ -2086,8 +2189,9 @@ def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
           f"iterations/s, {wall / steps * 1e3:.4f} ms/step, RTF "
           f"{wall / (steps * p.dt):.4f} (host clock after synchronize) on "
           f"{card}")
-    profile_call(f"one mixer step at {n}", lambda: adv(
+    by_name, seen, _ = nsc_profile(f"one mixer step at {n}", lambda: adv(
         pos, vel, om, 1, theta0=[theta]))
+    u_modes = nsc_u_modes(by_name, seen, n)
 
     # each kernel against its twin at the main path's shapes
     pos_s, ufree, cells, _ = nsc_bin(grid, pos, vel, om, p)
@@ -2105,7 +2209,7 @@ def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
                                                    inp["dc"])),
         "nsc_sweep_u": (
             lambda: ns.nsc_sweep_u(pos_s, ufree, *a, inp["part"], inp["rev"],
-                                   cs, c, u2),
+                                   cs, c, u2, inp["masks"]),
             lambda: ns.nsc_sweep_u_plain(pos_s, ufree, *a, inp["part"], cs,
                                          c)),
         "nsc_sweep_g": (
@@ -2136,47 +2240,59 @@ def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
             "err_over_tol": over_tol, "ms": ms, "wrapper_ms": issue_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None})
+    rows[NSC_KERNELS.index("nsc_sweep_u")]["first_launch_ms"] = u_modes[
+        "writing"]
     return rows
 
 
-def mixer_large(card, n_target=400_000):
-    """The same scene at 400,000 spheres, 2 warm-up and 5 timed steps, a
-    profiled step (each kernel's device time per launch), and each kernel
-    against its twin there: where the kernels, not the launches, set the
-    pace."""
+def mixer_large(card, n_target=400_000, warm=2, steps=20):
+    """The same scene at 400,000 spheres, 2 warm-up and 20 timed steps,
+    then profiled runs of one and of two steps from the same state (each
+    kernel's device time per launch; the device time of a call's last step,
+    which adds the wall reactions, and of a step before it), and each
+    kernel against its twin there: where the kernels, not the launches, set
+    the pace."""
     p, grid, walls, pts, spin = mixer_scene(n_target)
     n = len(pts)
     adv = make_nsc_pencil_advance(p, grid, walls, partners=6, device=DEV)
-    out, wall = nsc_run(adv, pts, 2, 5, 2 * p.dt * spin)
+    out, wall = nsc_run(adv, pts, warm, steps, warm * p.dt * spin)
     pos, vel, om, ovf, (_, wtorque) = out
     require(int(ovf) == 0 and all(bool(torch.isfinite(a).all()) for a in
                                   (pos, vel, om)),
             f"{n} spheres: overflow {int(ovf)} or non-finite state")
-    # each kernel's device time per launch over a profiled step (the
-    # launches of a DVI step, with its own multipliers)
-    by_name, seen = profile_call(f"one mixer step at {n}", lambda: adv(
-        pos, vel, om, 1, theta0=[7 * p.dt * spin]))
+    theta = (warm + steps) * p.dt * spin
+    _, _, last = nsc_profile(f"one mixer step at {n}", lambda: adv(
+        pos, vel, om, 1, theta0=[theta]))
+    by_name, seen, both = nsc_profile(f"two mixer steps at {n}", lambda: adv(
+        pos, vel, om, 2, theta0=[theta]))
+    print(f"NSC mixer {n}: device time of a step {both - last:.4f} ms, of "
+          f"a call's last step (with the wall reactions) {last:.4f} ms "
+          "(profiler on)")
     ms = {}
     for k in NSC_KERNELS:
         names = [name for name in by_name if f"{k}_kernel" in name]
-        launched = sum(seen[name] for name in names)
-        require(launched > 0, f"the profiler saw no {k} launch in a step "
-                f"at {n}")
-        ms[k] = sum(by_name[name] for name in names) / launched
+        ms[k] = (sum(by_name[name] for name in names)
+                 / sum(seen[name] for name in names))
     pos_s, ufree, cells, _ = nsc_bin(grid, pos, vel, om, p)
     contacts, _ = count_pairs(pos_s, cells, p.radius, p.envelope)
     c = nsc_static_params(p, walls)
-    cs = nsc_blade_cs(walls, 7 * p.dt * spin)
+    cs = nsc_blade_cs(walls, theta)
     # each kernel against its twin here too, as at 40,000
     errs, inp = nsc_kernels_vs_twins(pos_s, ufree, cells, c, cs, 6,
                                      f"mixer {n}")
     print(f"NSC kernels vs twins at {n}: {format_errs(errs)}")
-    rate = p.n_iter * 5 / wall
+    bounds = nsc_bounds(n, 6, walls, cells, inp, pos_s, c, cs)[2]
+    nsc_u_modes(by_name, seen, n)
+    bms, by = bounds["nsc_sweep_u"]
+    print(f"nsc_sweep_u at {n}: {ms['nsc_sweep_u']:.4f} ms per launch over "
+          f"the profiled steps' launches, bound {bms:.6f} ms by {by}")
+    rate = p.n_iter * steps / wall
     print(f"NSC mixer {n}: grid {grid.dims}, ovf 0, {contacts} contacts, "
-          f"blade torque about x {float(wtorque[5, 0]):.6f} N·m; 5 steps in "
-          f"{wall:.4f} s = {rate:.6e} DVI iterations/s, "
-          f"{wall / 5 * 1e3:.4f} ms/step, RTF {wall / (5 * p.dt):.4f}; "
-          "device time per launch in the profiled step: "
+          f"blade torque about x {float(wtorque[5, 0]):.6f} N·m; {steps} "
+          f"steps in {wall:.4f} s = {rate:.6e} DVI iterations/s, "
+          f"{wall / steps * 1e3:.4f} ms/step, RTF "
+          f"{wall / (steps * p.dt):.4f}; device time per launch in the "
+          "profiled steps: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
           + f" on {card}")
 

@@ -9,11 +9,12 @@
 // the GPU-native form: one thread per marker, every pair summed from the
 // thread's own side only, in a fixed order, with no atomics.
 //
-// Two walks hand the same pairs to the callable in the same order:
-// for_pairs, which calls it inline for each candidate inside 2h, and
-// for_pairs_compact, which scans the candidates first and runs the pair
-// body over the hits only (see there).  for_listed_pairs replays a list
-// that a compacted walk wrote.
+// The walk order: the 27 neighbour cells (edge cells skipped) in (dx, dy,
+// dz) order, each from -1 to 1, and in each cell its first `cap` markers in
+// sorted order, the marker itself skipped.  for_pairs_compact hands the
+// pairs inside 2h to the callable in that order, scanning the candidates
+// first and running the pair body over the hits only (see there);
+// for_listed_pairs replays a list that it wrote.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,59 +65,14 @@ __device__ __forceinline__ float cubic_dwdr(float q, float h, float sigma) {
   return sigma / h * (-0.75f * t * t);
 }
 
-// Calls pair(j, d, r2, r, q) for every marker j != i of the 27 neighbour
-// cells (edge cells skipped; only the first `cap` markers of a cell) that
-// lies inside the support (q < 2), in a fixed order.  d = x_i - x_j and
-// r = sqrt(r2 + 1e-12).  The position pointers take no __restrict__: the
-// CRM outer kernel reads buffers that it writes in a later sweep.
-template <class Pair>
-__device__ __forceinline__ void for_pairs(const float* px, const float* py,
-                                          const float* pz, const Cells& c,
-                                          int i, const float xi[3], float h,
-                                          Pair&& pair) {
-  const int cell = c.cell[i];
-  const int ck = cell % c.nz;
-  const int cj = (cell / c.nz) % c.ny;
-  const int ci = cell / (c.nz * c.ny);
-  // q >= 2 for certain beyond this r^2 (margin over rounding)
-  const float r2_cut = 4.0004f * h * h;
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int ii = ci + dx;
-    if (ii < 0 || ii >= c.nx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int jj = cj + dy;
-      if (jj < 0 || jj >= c.ny) continue;
-      for (int dz = -1; dz <= 1; ++dz) {
-        const int kk = ck + dz;
-        if (kk < 0 || kk >= c.nz) continue;
-        const int nc = (ii * c.ny + jj) * c.nz + kk;
-        const int s = c.start[nc];
-        const int e = s + min(c.count[nc], c.cap);
-        for (int j = s; j < e; ++j) {
-          PAIR_TALLY(0);
-          if (j == i) continue;
-          const float d[3] = {xi[0] - px[j], xi[1] - py[j], xi[2] - pz[j]};
-          const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-          if (r2 > r2_cut) continue;
-          const float r = sqrtf(r2 + 1e-12f);
-          const float q = r / h;
-          if (q >= 2.0f) continue;
-          PAIR_TALLY(1);
-          pair(j, d, r2, r, q);
-        }
-      }
-    }
-  }
-}
-
 // Whether sorted marker i is among the first `cap` of its cell (takes part).
 __device__ __forceinline__ bool live(const Cells& c, int i) {
   return i - c.start[c.cell[i]] < c.cap;
 }
 
-// d = x_i - x_j, r2, r = sqrt(r2 + 1e-12) and q = r/h of candidate j, in
-// for_pairs' arithmetic, so that a pair replayed from a list or a hit
-// buffer gets the same bits.
+// d = x_i - x_j, r2, r = sqrt(r2 + 1e-12) and q = r/h of candidate j: the
+// one arithmetic that hands a pair to a body, from a hit buffer or from a
+// list, so that a pair gets the same bits either way.
 __device__ __forceinline__ void pair_geometry(const float xj[3],
                                               const float xi[3], float h,
                                               float d[3], float& r2,
@@ -139,11 +95,14 @@ __device__ __forceinline__ void pair_geometry(const float* px,
   pair_geometry(xj, xi, h, d, r2, r, q);
 }
 
-// for_pairs' pairs in for_pairs' order, with the pair body run only over
-// the candidates inside the support.
+// Calls pair(j, d, r2, r, q) for every marker j != i inside the support
+// (q < 2), in the walk order, with d = x_i - x_j and r = sqrt(r2 + 1e-12)
+// (pair_geometry); the pair body runs only over those hits.  The position
+// pointers take no __restrict__: the CRM outer kernel reads buffers that
+// it writes in a later sweep.
 //
 // Why: one thread per marker walks ~400-700 candidates of which 8-17 % lie
-// inside 2h, and for_pairs runs the body inline, so a warp issues the
+// inside 2h, and a walk that runs the body inline makes a warp issue the
 // 40-90-flop body whenever any of its lanes has a hit, with a few lanes busy
 // (on an H100: in 0.35 of the SPH dam break's warp candidate iterations with
 // 7.4 lanes busy, 0.53 with 6.2 in the CRM lane; PERF.md). Here the walk is
@@ -158,7 +117,7 @@ __device__ __forceinline__ void pair_geometry(const float* px,
 // The walk: for fixed (dx, dy) the cells k-1..k+1 are consecutive ids, so
 // their markers form one contiguous run of sorted markers; a marker's 27
 // cells are nine runs (columns off the grid skipped), walked in (dx, dy)
-// order and each in sorted order, as for_pairs walks (dx, dy, dz, marker).
+// order and each in sorted order: the walk order (dx, dy, dz, marker).
 // Only the first c.cap markers of a cell take part, so a cell past its cap
 // ends its run there and the next cell starts a new one; cells within
 // their cap join the run (the next cell's markers start where theirs end).
@@ -172,10 +131,15 @@ __device__ __forceinline__ void pair_geometry(const float* px,
 // the block's buffer of kDepth x blockDim.x ints (slot t of this thread at
 // hits[t * blockDim.x + threadIdx.x]); the scan takes kUnroll candidates at
 // a time.  Each kernel sets both by timing on the card (PERF.md).
-template <int kDepth, int kUnroll, class Pair>
-__device__ __forceinline__ void for_pairs_compact(
+//
+// for_pairs_compact_kept takes a predicate keep(j) that the scan asks of
+// each candidate inside the support before it buffers it, so the body runs
+// over the kept ones only (SPH A keeps its fluid neighbours).
+template <int kDepth, int kUnroll, class Keep, class Pair>
+__device__ __forceinline__ void for_pairs_compact_kept(
     const float* px, const float* py, const float* pz, const Cells& c, int i,
-    const float xi[3], float h, bool walk, int* hits, Pair&& pair) {
+    const float xi[3], float h, bool walk, int* hits, Keep&& keep,
+    Pair&& pair) {
   static_assert(kUnroll >= 1 && kDepth >= kUnroll, "a stretch must fit");
   constexpr unsigned kWarp = 0xffffffffu;
   int* mine = hits + threadIdx.x;
@@ -229,9 +193,9 @@ __device__ __forceinline__ void for_pairs_compact(
         end += min(cnt, c.cap);
       }
     }
-    // candidate jc into the buffer if it lies inside the support, by
-    // for_pairs' two tests (a NaN passes both).  r^2 is written out as the
-    // fused form nvcc gives for_pairs' d0 d0 + d1 d1 + d2 d2 (equal on
+    // candidate jc into the buffer if it lies inside the support, by r^2
+    // against r2_cut and then q < 2 (a NaN passes both).  r^2 is written
+    // out as the fused form nvcc gives d0 d0 + d1 d1 + d2 d2 (equal on
     // 2^24 random pairs on an H100: PERF.md), so that the test is one
     // fixed float32 expression, which crm_neighbour_counts_plain
     // evaluates to the same bits.
@@ -242,6 +206,7 @@ __device__ __forceinline__ void for_pairs_compact(
           __fmaf_rn(d[2], d[2], __fmaf_rn(d[0], d[0], d[1] * d[1]));
       if (r2 > r2_cut) return;
       if (r2 >= r2_in && sqrtf(r2 + 1e-12f) / h >= 2.0f) return;
+      if (!keep(jc)) return;
       mine[held++ * slot] = jc;
     };
     // kUnroll at a time while they fit, then one at a time to the run's
@@ -255,6 +220,14 @@ __device__ __forceinline__ void for_pairs_compact(
     if (__any_sync(kWarp, held > kDepth - kUnroll)) flush();
   }
   flush();
+}
+
+template <int kDepth, int kUnroll, class Pair>
+__device__ __forceinline__ void for_pairs_compact(
+    const float* px, const float* py, const float* pz, const Cells& c, int i,
+    const float xi[3], float h, bool walk, int* hits, Pair&& pair) {
+  for_pairs_compact_kept<kDepth, kUnroll>(
+      px, py, pz, c, i, xi, h, walk, hits, [](int) { return true; }, pair);
 }
 
 // Calls pair(j, d, r2, r, q) for the n_listed pairs of a marker that a

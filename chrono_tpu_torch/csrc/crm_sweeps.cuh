@@ -29,7 +29,7 @@
 // sweep reads is written by a later one, so its loads must not go through
 // the non-coherent read-only cache.
 //
-// Each thread sums the pairs of its own marker only, in for_pairs' order
+// Each thread sums the pairs of its own marker only, in the walk order
 // (cell_pairs.cuh): no atomics in any sum, a fixed order.  Sweep M walks
 // for_pairs_compact and lists each integrated marker's neighbours; sweep G
 // replays that list.  Both read a neighbour's terms from a packed record
@@ -321,7 +321,7 @@ __device__ __forceinline__ void gradv_finish(const float* st, int n, int i,
 // the next state.  An integrated marker replays the n_listed[i] pairs that
 // momentum_listing listed, or, when they passed K, walks again
 // (for_pairs_compact; every lane of a warp calls it together); either way
-// the pairs of for_pairs in its order.  src gives the neighbours'
+// the pairs of the walk in its order.  src gives the neighbours'
 // positions for the replay and their kicked velocities and 1/rho.
 template <int kDepth, int kUnroll>
 __device__ __forceinline__ void gradv_stress_listed(

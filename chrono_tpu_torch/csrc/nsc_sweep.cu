@@ -36,7 +36,9 @@
 // against every wall, each row's frame computed before its envelope test)
 // take more than half of it, the contact rows' gathers of the partner's
 // nine planes the rest.  U, a sum per body, keeps one thread per body; no
-// shared-memory staging (staging the walls there gained nothing).
+// shared-memory staging (staging the walls there gained nothing).  It
+// visits only the walls of the body's mask, which the step's first U
+// writes (see U's modes).
 
 #include <cuda_runtime.h>
 
@@ -62,6 +64,15 @@ __device__ __forceinline__ void extrapolate(const float* __restrict__ g,
   }
 }
 
+// U's two modes.  Within a step the positions and the rotbox poses stay
+// fixed, so whether a body lies within a wall's envelope is the step's
+// constant: with kWrite, U computes every wall's frame, as the sum needs
+// it, and writes the body's wall mask on the way (the step's first
+// launch); without, it takes the walls in the mask only (every later
+// launch of the step).  The contact frames are built from the positions in
+// every launch: kept as per-step records they cost more to read than to
+// rebuild (PERF.md).
+template <bool kWrite>
 __global__ void __launch_bounds__(256)
 nsc_sweep_u_kernel(const float* __restrict__ pos,
                    const float* __restrict__ ufree,
@@ -72,8 +83,8 @@ nsc_sweep_u_kernel(const float* __restrict__ pos,
                    const int* __restrict__ rev_start,
                    const int* __restrict__ rev_count,
                    const int* __restrict__ rev, const float* __restrict__ cs,
-                   float* __restrict__ u, int n, int P, float beta,
-                   NscParams k) {
+                   int* __restrict__ wmask, float* __restrict__ u, int n,
+                   int P, float beta, NscParams k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int np = n * P, nw = n * k.n_walls;
@@ -105,10 +116,18 @@ nsc_sweep_u_kernel(const float* __restrict__ pos,
       tq[a] += T[a];
     }
   }
-  for (int w = 0; w < k.n_walls; ++w) {                // walls
+  // walls: bit w of the mask is set where the body lies within the
+  // envelope of wall w
+  const int mask = kWrite ? 0 : wmask[i];
+  int bits = 0;
+  for (int w = 0; w < k.n_walls; ++w) {
+    if (!kWrite && !((mask >> w) & 1)) continue;
     float vs[3];
     const Frame fr = wall_frame(k.walls[w], xi, k.radius, cs, vs);
-    if (!(fr.gap < k.envelope)) continue;
+    if (kWrite) {
+      if (!(fr.gap < k.envelope)) continue;
+      bits |= 1 << w;
+    }
     extrapolate(wg, wgp, nw, i * k.n_walls + w, beta, y);
     row_impulse(fr, y, F, T);
     for (int a = 0; a < 3; ++a) {
@@ -116,6 +135,7 @@ nsc_sweep_u_kernel(const float* __restrict__ pos,
       tq[a] += T[a];
     }
   }
+  if (kWrite) wmask[i] = bits;
   for (int a = 0; a < 3; ++a) {
     u[a * n + i] = ufree[a * n + i] + k.inv_m * f[a];
     u[(3 + a) * n + i] = ufree[(3 + a) * n + i] + k.inv_I * tq[a];
@@ -244,15 +264,17 @@ extern "C" int nsc_sweep_u_launch(const float* pos, const float* ufree,
                                   const float* wg, const float* wgp,
                                   const int* partners, const int* rev_start,
                                   const int* rev_count, const int* rev,
-                                  const float* cs, float* u, int n, int P,
-                                  float beta, const NscParams* k,
-                                  void* stream, int device) {
+                                  const float* cs, int* wmask, float* u,
+                                  int n, int P, float beta, int write,
+                                  const NscParams* k, void* stream,
+                                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nsc_sweep_u_kernel<<<blocks_for(n), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      pos, ufree, g, gp, wg, wgp, partners, rev_start, rev_count, rev, cs, u,
-      n, P, beta, *k);
+  const auto kernel = write ? nsc_sweep_u_kernel<true>
+                            : nsc_sweep_u_kernel<false>;
+  kernel<<<blocks_for(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      pos, ufree, g, gp, wg, wgp, partners, rev_start, rev_count, rev, cs,
+      wmask, u, n, P, beta, *k);
   return static_cast<int>(cudaGetLastError());
 }
 

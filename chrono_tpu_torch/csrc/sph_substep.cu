@@ -15,8 +15,8 @@
 // are copied through.
 //
 // Each thread walks the 27 neighbour cells (edge cells skipped) in a fixed
-// order (for_pairs in A, for_pairs_compact in B and CD: cell_pairs.cuh,
-// which the CRM sweeps share) and sums every pair onto its own marker only:
+// order (for_pairs_compact in A, B and CD: cell_pairs.cuh, which the CRM
+// sweeps share) and sums every pair onto its own marker only:
 // no atomics, and a deterministic sum.  A pair beyond the kernel support 2h
 // adds exact zeros in the plain twin, so it is skipped (first on r^2 with a
 // safe margin, then on q = r/h >= 2 exactly as the twin's branches).  A
@@ -34,9 +34,8 @@
 // candidate loop (three position loads, served from L1 because the threads
 // of a warp share most neighbour cells, and a distance test) and the ~60
 // flops of each interacting pair bound it, not DRAM: each sweep moves ~70 MB.
-// Inline in the candidate loop (A, which walks only solid markers) a warp
-// issues the pair body whenever any lane has a hit; B and CD, the long
-// sweeps, run it over compacted hits.
+// Every sweep runs its pair body over compacted hits; A launches its
+// walking threads over the solid markers only (see there).
 // No shared-memory staging of the neighbourhood, no half stencil.
 
 #include <cuda_runtime.h>
@@ -66,32 +65,61 @@ __device__ __forceinline__ float tait_rho(float p, const SphConsts& k) {
 }
 
 // ---- sweep A: Adami wall BC (sph_pencil_kernel.py:222-258) ----
-__global__ void __launch_bounds__(256)
-sph_adami_kernel(const float* __restrict__ st, Cells c,
-                 float* __restrict__ out, int n, SphConsts k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+//
+// Thread t takes marker order[t] (ops/cuda/sph_substep.py
+// adami_walk_order, once per binning): the live solid markers first, in
+// sorted order, then every other marker (fluid, or past its cell's cap), in
+// sorted order.  So only the first warps walk, each lane a solid marker
+// beside its neighbours in space, and they walk on the compacted walk as B
+// and CD do, each solid summing its fluid neighbours in the walk order.
+// The later threads only copy their marker's own values through the
+// epilogue, in the same launch.  What bounds it then is the length of one
+// solid's walk, not the number of walkers: skipping the solids with no
+// fluid in their 27 cells (three in four in the dam break) gained nothing
+// (PERF.md).  The scan keeps the fluid neighbours only, so the body runs
+// over those (testing the kind in the body instead was slower); the hit
+// buffer's depth, the scan's stretch and the minimum blocks an SM were set
+// by timing on the card (PERF.md).
+constexpr int kAHitDepth = 32;
+constexpr int kAUnroll = 4;
+constexpr int kAMinBlocks = 3;
+
+__global__ void __launch_bounds__(256, kAMinBlocks)
+sph_adami_kernel(const float* __restrict__ st, const int* __restrict__ order,
+                 Cells c, float* __restrict__ out, int n, SphConsts k) {
+  extern __shared__ int hits[];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool mine = t < n;
+  const int i = order[mine ? t : n - 1];
   const float flu = st[FLU * n + i];
   const float v[3] = {st[VX * n + i], st[VY * n + i], st[VZ * n + i]};
   float p_all = st[PRS * n + i];
   float vb[3] = {v[0], v[1], v[2]};
-  if (flu < 0.5f && live(c, i)) {
-    const float xi[3] = {st[PX * n + i], st[PY * n + i], st[PZ * n + i]};
-    float swp = 0.0f, sw = 0.0f, swv[3] = {0.0f, 0.0f, 0.0f};
-    for_pairs(st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h,
-              [&](int j, const float* d, float, float, float q) {
-                if (st[FLU * n + j] < 0.5f) return;   // fluid neighbours
-                const float w = cubic_w(q, k.sigma);
-                // hydrostatic term (g . (x_i - x_j)) rho_j for fixed walls
-                const float hydro =
-                    (k.g[0] * d[0] + k.g[1] * d[1] + k.g[2] * d[2]) *
-                    st[RHO * n + j];
-                swp += w * (st[PRS * n + j] + hydro);
-                swv[0] += w * st[VX * n + j];
-                swv[1] += w * st[VY * n + j];
-                swv[2] += w * st[VZ * n + j];
-                sw += w;
-              });
+  const bool walk = mine && flu < 0.5f && live(c, i);
+  float xi[3] = {0.0f, 0.0f, 0.0f};
+  if (walk) {
+    xi[0] = st[PX * n + i];
+    xi[1] = st[PY * n + i];
+    xi[2] = st[PZ * n + i];
+  }
+  float swp = 0.0f, sw = 0.0f, swv[3] = {0.0f, 0.0f, 0.0f};
+  for_pairs_compact_kept<kAHitDepth, kAUnroll>(
+      st + PX * n, st + PY * n, st + PZ * n, c, i, xi, k.h, walk, hits,
+      [&](int j) { return st[FLU * n + j] > 0.5f; },   // fluid neighbours
+      [&](int j, const float* d, float, float, float q) {
+        const float w = cubic_w(q, k.sigma);
+        // hydrostatic term (g . (x_i - x_j)) rho_j for fixed walls
+        const float hydro =
+            (k.g[0] * d[0] + k.g[1] * d[1] + k.g[2] * d[2]) *
+            st[RHO * n + j];
+        swp += w * (st[PRS * n + j] + hydro);
+        swv[0] += w * st[VX * n + j];
+        swv[1] += w * st[VY * n + j];
+        swv[2] += w * st[VZ * n + j];
+        sw += w;
+      });
+  if (!mine) return;
+  if (walk) {
     const bool has = sw > 1e-12f;
     const float den = fmaxf(sw, 1e-12f);
     p_all = has ? swp / den : 0.0f;
@@ -109,7 +137,7 @@ sph_adami_kernel(const float* __restrict__ st, Cells c,
 // ---- sweep B: momentum + kick (sph_pencil_kernel.py:260-319) ----
 //
 // On the compacted walk, as CD (see there): the pair body runs over each
-// fluid marker's hits only, in for_pairs' order, so each marker sums the
+// fluid marker's hits only, in the walk order, so each marker sums the
 // same pairs in the same order.  The hit buffer's depth, the scan's stretch
 // and the minimum blocks an SM were set by timing on the card (PERF.md).
 constexpr int kBHitDepth = 40;
@@ -170,7 +198,7 @@ sph_momentum_kernel(const float* __restrict__ st,
 //
 // On the compacted walk (for_pairs_compact), as B: a fluid marker
 // scans its ~680 candidates and runs the pair body over its ~8 % hits only, in
-// for_pairs' order, so each marker sums the same pairs in the same order as
+// the walk order, so each marker sums the same pairs in the same order as
 // before (bit for bit, on the card).  Every lane of a warp takes part in the
 // walk's votes, so a thread past n walks nothing and writes nothing.  The hit
 // buffer's depth (kCdHitDepth slots a thread, 40 KB a block), the scan's
@@ -246,17 +274,22 @@ int blocks_for(int n) { return (n + 255) / 256; }
 // Launchers: run on `stream` and return cudaGetLastError() (0 on success).
 // The caller checks shapes, types, devices and that no input is the output.
 
-extern "C" int sph_adami_launch(const float* state, const int* cell,
-                                const int* start, const int* count,
-                                float* out, int n, int nx, int ny, int nz,
-                                int cap, const SphConsts* k, void* stream,
-                                int device) {
+extern "C" int sph_adami_launch(const float* state, const int* order,
+                                const int* cell, const int* start,
+                                const int* count, float* out, int n, int nx,
+                                int ny, int nz, int cap, const SphConsts* k,
+                                void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = 256 * kAHitDepth * static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(sph_adami_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Cells c{cell, start, count, nx, ny, nz, cap};
-  sph_adami_kernel<<<blocks_for(n), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(state, c, out, n,
-                                                          *k);
+  sph_adami_kernel<<<blocks_for(n), 256, smem,
+                     static_cast<cudaStream_t>(stream)>>>(state, order, c,
+                                                          out, n, *k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,9 @@ Counterpart of ``chrono_tpu/fsi/sph/pencil.py`` (``bin_to_pencils``,
 ``pencils_to_state``, ``make_sph_advance_pencil``).  The name is kept so
 that a reader finds the counterpart, but the layout is not pencils: the
 markers are sorted by cell id into a (10, N) structure of arrays with a
-per-cell ``(start, count)`` table, once per cycle, and each substep is the
-three sweeps of ``ops.cuda.sph_substep``.  The JAX advance's row-activity
+per-cell ``(start, count)`` table, once per cycle, with sweep A's thread
+order (the live solid markers first), and each substep is the three sweeps
+of ``ops.cuda.sph_substep``.  The JAX advance's row-activity
 masks have no counterpart: a GPU thread of a solid or empty region simply
 skips its pair loop.
 """
@@ -17,8 +18,8 @@ import torch
 from chrono_tpu_torch.collision.cell_list import GridSpec, cell_index
 from chrono_tpu_torch.fsi.sph.state import FLUID, SPHParams, SPHState
 from chrono_tpu_torch.ops.cuda.sph_substep import (
-    N_ADAMI, PX, PZ, RHO, VX, VZ, SortedCells, sph_static_params,
-    sph_substep, state_planes,
+    N_ADAMI, PX, PZ, RHO, VX, VZ, SortedCells, adami_walk_order,
+    sph_static_params, sph_substep, state_planes,
 )
 
 
@@ -91,8 +92,10 @@ def make_sph_advance_pencil(params: SPHParams, grid: GridSpec,
             spare = torch.empty_like(feat)
             adami = feat.new_empty((N_ADAMI, n))
             vel = feat.new_empty((3, n))
+            walk_order = adami_walk_order(feat, cells)
             for _ in range(steps):
-                sph_substep(feat, cells, consts, adami, vel, spare)
+                sph_substep(feat, cells, consts, adami, vel, spare,
+                            walk_order)
                 feat, spare = spare, feat
             state = cells_to_state(feat, order, state)
             state = state.replace(time=state.time + cycle_time)

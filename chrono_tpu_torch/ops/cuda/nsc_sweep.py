@@ -22,9 +22,15 @@ view of it is (γn, γu, −γv) with −n, −t1, t2, so its reaction on the
 partner is −force and +torque.  U runs one thread per body over its owned
 contacts, then the contacts that name it as partner (the reverse table),
 then its walls; G one thread per row of its output, a contact's or a wall's.
-Neither needs atomics, and each sums in a fixed order.  The plain twins are
-written with ``ops/nsc_pair.py``; the kernels (``csrc/nsc_sweep.cu``) with
-the same math in ``csrc/nsc_pair.cuh``.
+Neither needs atomics, and each sums in a fixed order.
+
+Within a step the positions and the rotbox poses stay fixed, so whether a
+body lies within a wall's envelope is the step's constant.  U's first launch
+of a step writes it as each body's wall mask (bit w for wall w); every later
+launch takes only the walls in the mask.  The contact frames are rebuilt
+from the positions in every launch: as per-step records they cost more to
+read than to rebuild (PERF.md).  The mask holds geometry only: the dynamic
+blade's spin, which changes every iteration, is read from ``cs``.
 
 Walls and the per-body arrays: pos (3, N), u_free and u (6, N: v, ω),
 partner table (N, P) int32, wall multipliers (3, N, W) in wall order.  The
@@ -113,8 +119,11 @@ def _wall_rows(c: NSCConsts, pos, cs):
 
 
 def nsc_sweep_u_plain(pos, ufree, gam, gprev, wgam, wgprev, beta: float,
-                      partners, cs, c: NSCConsts) -> torch.Tensor:
-    """Twin of sweep U: the (6, N) u = u_free + M⁻¹ Dᵀ y."""
+                      partners, cs, c: NSCConsts,
+                      masks=None) -> torch.Tensor:
+    """Twin of sweep U: the (6, N) u = u_free + M⁻¹ Dᵀ y.  With ``masks``
+    (the wall masks that U reads) a wall's row counts only where the body's
+    mask sets its bit, as in U reading them."""
     i, j, valid = _pairs(pos, partners)
     y = gam + beta * (gam - gprev)
     nhat, _, arm, t1, t2 = pair_geometry(pos[0][i], pos[1][i], pos[2][i],
@@ -134,12 +143,23 @@ def nsc_sweep_u_plain(pos, ufree, gam, gprev, wgam, wgprev, beta: float,
     tau.index_add_(1, jj, torch.stack([Ta.reshape(-1) for Ta in T]))
     yw = wgam + beta * (wgam - wgprev)
     for w, _, nh, _, _, ok, armw, wt1, wt2 in _wall_rows(c, pos, cs):
+        if masks is not None:
+            ok = ((masks >> w) & 1).to(pos.dtype)
         yn, yu, yv = yw[0, :, w], yw[1, :, w], yw[2, :, w]
         f = f + torch.stack([ok * -(yn * nh[a] + yu * wt1[a] + yv * wt2[a])
                              for a in range(3)])
         tau = tau + torch.stack([ok * armw * (yv * wt1[a] - yu * wt2[a])
                                  for a in range(3)])
     return torch.cat([ufree[0:3] + c.inv_m * f, ufree[3:6] + c.inv_I * tau])
+
+
+def wall_masks_plain(pos, cs, c: NSCConsts) -> torch.Tensor:
+    """Twin of U's wall masks: (N,) int32, bit w set where the body lies
+    within the envelope of wall w."""
+    masks = torch.zeros(pos.shape[1], dtype=torch.int32, device=pos.device)
+    for w, *_, ok, _, _, _ in _wall_rows(c, pos, cs):
+        masks |= (ok > 0).to(torch.int32) << w
+    return masks
 
 
 def nsc_sweep_g_plain(pos, u, gam, gprev, wgam, wgprev, beta: float,
@@ -234,18 +254,36 @@ def _bind(name: str, defines: tuple):
     """The launcher of the build that ``_build.load`` returns under
     ``defines`` (the cache key: each build binds its own)."""
     fn = getattr(_build.load("nsc_sweep"), f"{name}_launch")
-    n_ptr = {"nsc_sweep_u": 12, "nsc_sweep_g": 10}[name]
+    n_ptr = {"nsc_sweep_u": 13, "nsc_sweep_g": 10}[name]
+    mode = [ctypes.c_int] if name == "nsc_sweep_u" else []
     fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.POINTER(_Params), ctypes.c_void_p,
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + mode
+                   + [ctypes.POINTER(_Params), ctypes.c_void_p,
                       ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(pos, u_in, gam, gprev, wgam, wgprev, partners, cs, c, outs):
+def _check_int(label, t, size, dev):
+    if (t.dtype != torch.int32 or not t.is_contiguous() or t.numel() != size
+            or t.device != dev):
+        raise ValueError(f"{label} must be contiguous int32 of {size} on "
+                         f"{dev}")
+
+
+def _check_overlaps(ins, outs):
+    for k, (label, out) in enumerate(outs):
+        if out.numel() and any(t.numel() and overlaps(t, out) for t in
+                               ins + tuple(o for _, o in outs[:k])):
+            raise ValueError(f"{label} overlaps another array: the sweeps "
+                             "run out of place")
+
+
+def _check(pos, u_in, gam, gprev, wgam, wgprev, partners, cs, c, outs,
+           more_ins=(), more_outs=()):
     """Raise unless every array is contiguous, of its type and shape, on
-    one device, and no output overlaps an input or another output."""
+    one device, and no output (``more_outs`` (label, tensor) too) overlaps
+    an input (``more_ins`` too) or another output."""
     n, P = partners.shape
     W = len(c.walls)
     dev = pos.device
@@ -265,35 +303,44 @@ def _check(pos, u_in, gam, gprev, wgam, wgprev, partners, cs, c, outs):
     if n == 0 or P < 1 or 3 * n * max(P, W) >= 2 ** 31:
         raise ValueError(f"{n} bodies x {P} partners is outside the kernels' "
                          "range")
-    ins = (pos, u_in, gam, gprev, wgam, wgprev, partners, cs)
-    for k, (label, out, _) in enumerate(outs):
-        if out.numel() and any(t.numel() and overlaps(t, out) for t in
-                               ins + tuple(o for _, o, _ in outs[:k])):
-            raise ValueError(f"{label} overlaps another array: the sweeps "
-                             "run out of place")
+    _check_overlaps((pos, u_in, gam, gprev, wgam, wgprev, partners, cs)
+                    + tuple(more_ins),
+                    [(label, t) for label, t, _ in outs] + list(more_outs))
 
 
 def nsc_sweep_u(pos, ufree, gam, gprev, wgam, wgprev, beta: float,
                 partners, rev: ReverseTable, cs, c: NSCConsts,
-                out: torch.Tensor) -> None:
-    """Sweep U: out (6, N) ← u_free + M⁻¹ Dᵀ y.  A CUDA tensor launches
-    the kernel; a CPU tensor runs the twin."""
+                out: torch.Tensor, masks: torch.Tensor | None = None,
+                write: bool = False) -> None:
+    """Sweep U: out (6, N) ← u_free + M⁻¹ Dᵀ y.
+
+    ``masks`` (N,) int32 are the step's wall masks: with ``write`` this
+    launch tests every wall and writes them (a step's first launch),
+    without it takes only the walls they hold, which must have been
+    written from these positions and poses.  With no ``masks`` (a
+    convenience for a single call outside a step, as in the tests) the
+    launch allocates scratch masks and writes them, testing every wall.
+    A CUDA tensor launches the kernel; a CPU tensor runs the twins."""
+    n, P = partners.shape
+    if masks is None:
+        masks, write = torch.empty(n, dtype=torch.int32,
+                                   device=pos.device), True
     if pos.device.type == "cuda":
-        n, P = partners.shape
+        _check_int("masks", masks, n, pos.device)
         _check(pos, ufree, gam, gprev, wgam, wgprev, partners, cs, c,
-               (("out", out, (6, n)),))
+               (("out", out, (6, n)),),
+               more_ins=() if write else (masks,),
+               more_outs=(("masks", masks),) if write else ())
         for label, t, size in (("rev.start", rev.start, n),
                                ("rev.count", rev.count, n),
                                ("rev.entry", rev.entry, n * P)):
-            if (t.dtype != torch.int32 or not t.is_contiguous()
-                    or t.numel() != size or t.device != pos.device):
-                raise ValueError(f"{label} must be contiguous int32 of "
-                                 f"{size} on {pos.device}")
+            _check_int(label, t, size, pos.device)
         err = _launcher("nsc_sweep_u")(
             pos.data_ptr(), ufree.data_ptr(), gam.data_ptr(),
             gprev.data_ptr(), wgam.data_ptr(), wgprev.data_ptr(),
             partners.data_ptr(), rev.start.data_ptr(), rev.count.data_ptr(),
-            rev.entry.data_ptr(), cs.data_ptr(), out.data_ptr(), n, P, beta,
+            rev.entry.data_ptr(), cs.data_ptr(), masks.data_ptr(),
+            out.data_ptr(), n, P, beta, int(write),
             ctypes.byref(c.kernel_params),
             torch.cuda.current_stream(pos.device).cuda_stream,
             pos.device.index)
@@ -301,8 +348,13 @@ def nsc_sweep_u(pos, ufree, gam, gprev, wgam, wgprev, beta: float,
             raise RuntimeError(f"nsc_sweep_u launch failed: cudaError {err}")
         nsc_sweep_u.launches += 1
     elif pos.device.type == "cpu":
-        out.copy_(nsc_sweep_u_plain(pos, ufree, gam, gprev, wgam, wgprev,
-                                    beta, partners, cs, c))
+        if write:
+            masks.copy_(wall_masks_plain(pos, cs, c))
+            out.copy_(nsc_sweep_u_plain(pos, ufree, gam, gprev, wgam, wgprev,
+                                        beta, partners, cs, c))
+        else:
+            out.copy_(nsc_sweep_u_plain(pos, ufree, gam, gprev, wgam, wgprev,
+                                        beta, partners, cs, c, masks))
     else:
         raise ValueError(f"no nsc_sweep_u for device {pos.device}")
 

@@ -12,10 +12,12 @@ structure of arrays, with a per-cell ``(start, count)`` table
 (:class:`SortedCells`).  Each sweep is one CUDA kernel
 (``csrc/sph_substep.cu``) that runs one thread per marker over the 27
 neighbour cells and sums each pair from its own side, so it needs no
-atomics and its sum order is fixed.  CD scans the candidates first and
+atomics and its sum order is fixed.  Each scans the candidates first and
 runs its pair body over the hits only (``for_pairs_compact`` in
-``csrc/cell_pairs.cuh``).  Each sweep needs the previous one's result on
-every neighbour, so each writes a fresh buffer:
+``csrc/cell_pairs.cuh``).  A walks only from solid markers: its threads
+take the markers in :func:`adami_walk_order`, the live solids first.  Each
+sweep needs the previous one's result on every neighbour, so each writes a
+fresh buffer:
 
   A  ``sph_adami``: Adami wall BC on solid markers, from their fluid
      neighbours               state (10, N) → adami (7, N)
@@ -328,8 +330,9 @@ def _bind(name: str, defines: tuple):
     """The launcher of the build that ``_build.load`` returns under
     ``defines`` (the cache key: a counter build binds its own)."""
     fn = getattr(_build.load("sph_substep"), f"{name}_launch")
-    n_in = {"sph_adami": 1, "sph_momentum": 2, "sph_continuity_drift": 2}
-    fn.argtypes = ([ctypes.c_void_p] * n_in[name]          # float inputs
+    # A's inputs: the state and its thread order
+    n_in = {"sph_adami": 2, "sph_momentum": 2, "sph_continuity_drift": 2}
+    fn.argtypes = ([ctypes.c_void_p] * n_in[name]          # inputs
                    + [ctypes.c_void_p] * 3                 # cell table
                    + [ctypes.c_void_p]                     # output
                    + [ctypes.c_int] * 5                    # n, dims, C
@@ -374,8 +377,9 @@ def check_cells(cells: SortedCells, device, n_state: int):
 
 
 def _launch(name, inputs, cells: SortedCells, out, out_rows,
-            c: SPHConsts):
-    """Check ``inputs`` (label, tensor, rows) and ``out`` and launch."""
+            c: SPHConsts, order=None):
+    """Check ``inputs`` (label, tensor, rows), ``out`` and A's thread
+    ``order`` and launch."""
     n = cells.cell.shape[0]
     dev = inputs[0][1].device
     for label, t, rows in inputs:
@@ -385,8 +389,17 @@ def _launch(name, inputs, cells: SortedCells, out, out_rows,
         if overlaps(t, out):
             raise ValueError(f"{name} runs out of place ({label} is out)")
     check_cells(cells, dev, N_STATE)
+    extra = ()
+    if order is not None:
+        if (order.dtype != torch.int32 or not order.is_contiguous()
+                or tuple(order.shape) != (n,) or order.device != dev):
+            raise ValueError(f"order must be contiguous int32 ({n},) on "
+                             f"{dev}")
+        if overlaps(order, out):
+            raise ValueError(f"{name} runs out of place (order is out)")
+        extra = (order.data_ptr(),)
     err = _launcher(name)(
-        *(t.data_ptr() for _, t, _ in inputs), cells.cell.data_ptr(),
+        *(t.data_ptr() for _, t, _ in inputs), *extra, cells.cell.data_ptr(),
         cells.start.data_ptr(), cells.count.data_ptr(), out.data_ptr(), n,
         *cells.dims, cells.capacity, ctypes.byref(c.kernel_params),
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
@@ -394,14 +407,34 @@ def _launch(name, inputs, cells: SortedCells, out, out_rows,
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def adami_walk_order(state: torch.Tensor,
+                     cells: SortedCells) -> torch.Tensor:
+    """A's thread order, (N,) int32: the sorted indices of the live solid
+    markers (those whose pair loop runs) in sorted order, then the others in
+    sorted order.  A stable sort of a 0/1 key on the state's device, with no
+    host sync; markers never change kind, so it holds for a binning."""
+    n = state.shape[1]
+    start = cells.start.long()[cells.cell.long()]
+    live = torch.arange(n, device=state.device) - start < cells.capacity
+    rest = ~((state[FLU] < 0.5) & live)
+    return torch.argsort(rest.to(torch.int32), stable=True).to(torch.int32)
+
+
 def sph_adami(state: torch.Tensor, cells: SortedCells, c: SPHConsts,
-              out: torch.Tensor) -> None:
+              out: torch.Tensor, order: torch.Tensor | None = None) -> None:
     """Sweep A: out (7, N) ← the Adami planes of the (10, N) state.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the twin."""
+    ``order`` must be :func:`adami_walk_order` of this binning (any
+    state of it: markers never change kind); it is not checked beyond its
+    type and shape, and a marker missing from it keeps its column of
+    ``out`` unwritten.  Without ``order`` (a convenience for a single call,
+    as in the tests) it is made here, a sort on every call.  A CUDA tensor
+    launches the kernel; a CPU tensor runs the twin."""
     if state.device.type == "cuda":
+        if order is None:
+            order = adami_walk_order(state, cells)
         _launch("sph_adami", [("state", state, N_STATE)], cells, out,
-                N_ADAMI, c)
+                N_ADAMI, c, order)
         sph_adami.launches += 1
     elif state.device.type == "cpu":
         out.copy_(sph_adami_plain(state, cells, c))
@@ -446,10 +479,10 @@ sph_continuity_drift.launches = 0
 
 
 def sph_substep(state: torch.Tensor, cells: SortedCells, c: SPHConsts,
-                adami: torch.Tensor, vel: torch.Tensor,
-                out: torch.Tensor) -> None:
+                adami: torch.Tensor, vel: torch.Tensor, out: torch.Tensor,
+                order: torch.Tensor | None = None) -> None:
     """out ← one substep of ``state`` through the three sweeps; ``adami``
-    (7, N) and ``vel`` (3, N) are scratch."""
-    sph_adami(state, cells, c, adami)
+    (7, N) and ``vel`` (3, N) are scratch, ``order`` A's thread order."""
+    sph_adami(state, cells, c, adami, order)
     sph_momentum(state, adami, cells, c, vel)
     sph_continuity_drift(state, vel, cells, c, out)

@@ -8,7 +8,8 @@ that a reader finds the counterpart, but the layout is not pencils: one DVI
 step bins the bodies by cell (a stable sort, ``fsi.sph.pencil.
 bin_to_cells``), detects the contacts once (``ops.cuda.nsc_detect``), runs
 ``n_iter`` APGD iterations of sweeps U and G (``ops.cuda.nsc_sweep``) from a
-cold start, a last U with β = 0, and then updates x explicitly.  The JAX
+cold start, a last U with β = 0, and then updates x explicitly.  The step's
+first U writes each body's wall mask, which its later U launches read.  The JAX
 package's backends choose TPU layouts (``backend``, ``Bxy``, ``interpret``);
 this port has one.
 
@@ -233,6 +234,9 @@ def make_nsc_pencil_advance(p: NSCPencilParams, grid: GridSpec, walls,
         wgam, wgprev, wfree = (torch.zeros((3, n, W), **f32)
                                for _ in range(3))
         u = torch.empty((6, n), **f32)
+        # the step's wall masks: U's first launch writes them, every later
+        # one reads them
+        masks = torch.empty((n,), dtype=torch.int32, device=device)
         ws = None
         if dyn:
             tq_fns = _blade_torque_fns(p, walls, pos_s[0], pos_s[1],
@@ -241,7 +245,7 @@ def make_nsc_pencil_advance(p: NSCPencilParams, grid: GridSpec, walls,
         dgam = []
         for k in range(p.n_iter):
             nsc_sweep_u(pos_s, ufree, gam, gprev, wgam, wgprev, betas[k],
-                        part, rev, cs, c, u)
+                        part, rev, cs, c, u, masks, write=k == 0)
             nsc_sweep_g(pos_s, u, gam, gprev, wgam, wgprev, betas[k], part,
                         cs, c, gfree, wfree)
             if track:
@@ -256,7 +260,7 @@ def make_nsc_pencil_advance(p: NSCPencilParams, grid: GridSpec, walls,
             gam, gprev, gfree = gfree, gam, gprev
             wgam, wgprev, wfree = wfree, wgam, wgprev
         nsc_sweep_u(pos_s, ufree, gam, gam, wgam, wgam, 0.0, part, rev, cs,
-                    c, u)
+                    c, u, masks, write=p.n_iter == 0)
         return u, pov, wgam, ws, dgam
 
     def step(pos, vel, omega, theta, wspin, last):

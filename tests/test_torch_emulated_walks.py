@@ -480,3 +480,158 @@ def test_emulated_g_on_a_list_short_of_a_neighbour_differs(libs):
     got = _gradv(libs, feat, mv, cells, c, short)
     assert not torch.equal(got, ref)
     assert torch.equal(got[:, ~kick], ref[:, ~kick])
+
+
+
+def _u_scene(blade_inertia, P):
+    """:func:`_mixer`'s bodies and three walls with a partner budget of P,
+    two bodies of the lowest layer put 0.999 and 1.001 envelopes from the
+    floor (a wall row just inside its reach and one just outside; both stay
+    in their cells), random multipliers (seed 31) and the reverse table.
+    Returns the inputs of U, the two bodies and the largest contact count."""
+    p, grid, walls, pts, _ = cs.mixer_scene(400)
+    p = p.replace(blade_inertia=blade_inertia)
+    blade = walls[-1]
+    centre = (0.0, blade[2][1], blade[2][2])
+    rad = np.hypot(pts[:, 1] - centre[1], pts[:, 2] - centre[2])
+    walls = (("plane", (1.0, 0.0, 0.0), 0.004, (0.0, 0.0, 0.0), 0.4),
+             ("cyl", 0, centre, float(np.quantile(rad, 0.9)) + p.radius,
+              0.7, 0.35), blade)
+    rng = np.random.default_rng(7)
+    vel, om = rng.normal(0.0, 0.2, pts.shape), rng.normal(0.0, 2.0, pts.shape)
+    pos_s, ufree, cells, _ = cs.nsc_bin(grid, pts, vel, om, p, device="cpu")
+    c = nsc_static_params(p, walls)
+    low = torch.argsort(pos_s[0])[:2]
+    edge = 0.004 + c.radius
+    pos_s[0, low] = torch.tensor([edge + 0.999 * c.envelope,
+                                  edge + 1.001 * c.envelope])
+    part, count = nd.nsc_detect_plain(
+        pos_s, cells, P, nd.DetectConsts.of(c.radius, c.envelope))
+    n = pos_s.shape[1]
+    rng = np.random.default_rng(31)
+    valid = (part >= 0).numpy()
+    gam, gprev = (torch.as_tensor(np.where(valid, rng.uniform(
+        -0.005, 0.01, (3, n, P)), 0.0), dtype=torch.float32)
+                  for _ in range(2))
+    wgam, wgprev = (torch.as_tensor(rng.uniform(-0.005, 0.01, (3, n, 3)),
+                                    dtype=torch.float32) for _ in range(2))
+    pose = cs.nsc_blade_cs(walls, 0.4, device="cpu")
+    inputs = (pos_s, ufree, gam, gprev, wgam, wgprev, part,
+              nd.reverse_table(part), pose, c)
+    return inputs, low, int(count.max())
+
+
+def _sweep_u(libs, inputs, masks, write, beta=0.3):
+    """U's emulated kernel, writing the wall masks or reading them: u."""
+    pos_s, ufree, gam, gprev, wgam, wgprev, part, rev, pose, c = inputs
+    n, P = part.shape
+    u = torch.empty_like(ufree)
+    _launch(libs, ns, "nsc_sweep_u", pos_s.data_ptr(), ufree.data_ptr(),
+            gam.data_ptr(), gprev.data_ptr(), wgam.data_ptr(),
+            wgprev.data_ptr(), part.data_ptr(), rev.start.data_ptr(),
+            rev.count.data_ptr(), rev.entry.data_ptr(), pose.data_ptr(),
+            masks.data_ptr(), u.data_ptr(), n, P, beta, int(write),
+            ctypes.byref(c.kernel_params))
+    return u
+
+
+@pytest.mark.parametrize("blade_inertia", [0.0, 0.05])
+@pytest.mark.parametrize("P", [12, 2])
+def test_emulated_sweep_u_on_wall_masks_matches_twin(libs, blade_inertia,
+                                                     P):
+    """U writing the wall masks, as a step's first launch does, and U
+    reading them, against its twin at phase 8's tolerance, with a budget
+    that holds every contact (12) and one that overflows (2); the masks
+    equal their twin's, each wall kind reaches some bodies but not all, and
+    the two bodies at the floor's envelope are in and out of its mask."""
+    inputs, low, most = _u_scene(blade_inertia, P)
+    pos_s, ufree, gam, gprev, wgam, wgprev, part, rev, pose, c = inputs
+    assert (most > P) == (P == 2)
+    twin = ns.wall_masks_plain(pos_s, pose, c)
+    assert [int(twin[i]) & 1 for i in low] == [1, 0]
+    for w in range(3):
+        held = ((twin >> w) & 1).bool()
+        assert bool(held.any()) and not bool(held.all())
+    ref = ns.nsc_sweep_u_plain(pos_s, ufree, gam, gprev, wgam, wgprev, 0.3,
+                               part, pose, c)
+    masks = torch.empty(pos_s.shape[1], dtype=torch.int32)
+    cs.nsc_u_close(_sweep_u(libs, inputs, masks, True), ref, "U writing")
+    assert torch.equal(masks, twin)
+    cs.nsc_u_close(_sweep_u(libs, inputs, masks, False), ref, "U reading")
+    assert float((ref - ufree).abs().max()) > 1e-4
+
+
+def test_emulated_sweep_u_masks_hold_geometry_only(libs):
+    """The wall masks that a step's first launch writes from its zero
+    multipliers equal those of a launch on other multipliers, and U reading
+    them gives the writing launch's u on the same multipliers, bit for
+    bit."""
+    inputs, _, _ = _u_scene(0.0, 6)
+    n = inputs[0].shape[1]
+    first, again = (torch.empty(n, dtype=torch.int32) for _ in range(2))
+    zero = [torch.zeros_like(t) for t in inputs[2:6]]
+    _sweep_u(libs, inputs[:2] + tuple(zero) + inputs[6:], first, True,
+             beta=0.0)
+    u_written = _sweep_u(libs, inputs, again, True)
+    assert torch.equal(first, again) and bool(first.any())
+    assert torch.equal(_sweep_u(libs, inputs, first, False), u_written)
+
+
+def test_emulated_sweep_u_on_a_cleared_mask_differs(libs):
+    """Planted fault: one body's wall mask cleared moves its u beyond the
+    tolerance that the tests above hold U to, and no other body's."""
+    inputs, low, _ = _u_scene(0.0, 6)
+    n = inputs[0].shape[1]
+    masks = torch.empty(n, dtype=torch.int32)
+    good = _sweep_u(libs, inputs, masks, True)
+    body = int(low[0])
+    assert int(masks[body]) & 1
+    masks[body] = 0
+    bad = _sweep_u(libs, inputs, masks, False)
+    with pytest.raises(RuntimeError, match="values off"):
+        cs.nsc_u_close(bad, good, "U on a cleared mask")
+    moved = (bad != good).any(0)
+    assert torch.nonzero(moved).reshape(-1).tolist() == [body]
+
+
+def _adami(libs, feat, cells, c, order):
+    out = feat.new_empty((sph.N_ADAMI, feat.shape[1]))
+    _launch(libs, sph, "sph_adami", feat.data_ptr(), order.data_ptr(),
+            *_table(cells), out.data_ptr(), feat.shape[1], *cells.dims,
+            cells.capacity, ctypes.byref(c.kernel_params))
+    return out
+
+
+@pytest.mark.parametrize("at_cap", [False, True])
+def test_emulated_adami_walks_solids_only(libs, at_cap):
+    """A, its threads in adami_walk_order (the live solids first), against
+    its twin at phase 3's plane tolerances, at C = 32 and with one cell
+    filled exactly to C and the fullest past it; solids with fluid
+    neighbours and solids without (the ``has`` false branch: p = 0, the
+    marker's own velocity) both occur; fluid markers and markers past C keep
+    their own values bit for bit."""
+    feat, _, cells, c, ovf = _dam("artificial", at_cap)
+    assert (ovf > 0) == at_cap
+    feat = _stirred(feat, cells, c)
+    n = feat.shape[1]
+    order = sph.adami_walk_order(feat, cells)
+    start = cells.start.long()[cells.cell.long()]
+    live = torch.arange(n) - start < cells.capacity
+    walk = (feat[sph.FLU] < 0.5) & live
+    idx = torch.arange(n, dtype=torch.int32)
+    assert torch.equal(order, torch.cat([idx[walk], idx[~walk]]))
+    got = _adami(libs, feat, cells, c, order)
+    ref = sph.sph_adami_plain(feat, cells, c)
+    cs.sph_p_close(got[0], ref[0], c, "A p")
+    cs.sph_vel_close(got[1:4], ref[1:4], "A v_bc")
+    cs.check_close(got[4], ref[4], **cs.SPH_RHO_TOL, what="A rho")
+    cs.sph_p_close(got[5], ref[5], c, "A p/rho2", per_rho2=True)
+    cs.check_close(got[6], ref[6], **cs.SPH_RHO_TOL, what="A 1/rho")
+    dry = walk & (ref[sph.A_P] == 0)
+    assert bool(dry.any()) and bool((walk & ~dry).any())
+    assert torch.equal(got[1:4, dry], feat[3:6, dry])
+    assert bool((got[0, dry] == 0).all())
+    assert bool((~live).any()) == at_cap
+    keep = ~walk
+    assert torch.equal(got[0, keep], feat[sph.PRS, keep])
+    assert torch.equal(got[1:4, keep], feat[3:6, keep])

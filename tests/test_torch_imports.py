@@ -54,3 +54,9 @@ def test_guard_walks_the_whole_port():
     assert "chrono_tpu_torch/ops/cuda/sph_substep.py" in FILES
     assert "chrono_tpu_torch/fsi/sph/pencil.py" in FILES
     assert len(FILES) >= 20
+
+
+def test_turn_probe_imports_no_jax():
+    """``kernel_turns.py`` runs on the card's machine beside
+    ``chip_smoke.py``: it too imports nothing of JAX."""
+    assert banned_imports((ROOT / "kernel_turns.py").read_text()) == []

@@ -721,3 +721,75 @@ def test_nsc_wrappers_check_inputs(card):
     ns.nsc_sweep_u(pos_s, ufree, g, g, wg, wg, 0.3, part, rev, cs, c, u)
     torch.cuda.synchronize()
     assert torch.equal(u, ufree)
+
+
+def test_nsc_sweep_u_wall_masks_compose_on_cpu():
+    """On CPU tensors U's wall masks come from their twin and U's twin on
+    the masks gives the plain twin's bits: a writing call fills the masks,
+    a reading call uses them (a cleared mask moves u)."""
+    pos_s, ufree, cells, c, cs, dc, part, rev, g, wg = _nsc_sweep_inputs(
+        "cpu")
+    n = part.shape[0]
+    args = (pos_s, ufree, g + 0.01, g, wg + 0.01, wg, 0.3, part, rev, cs, c)
+    ref = ns.nsc_sweep_u_plain(*args[:8], cs, c)
+    masks = torch.empty(n, dtype=torch.int32)
+    written, read = torch.empty_like(ufree), torch.empty_like(ufree)
+    ns.nsc_sweep_u(*args, written, masks, write=True)
+    ns.nsc_sweep_u(*args, read, masks)
+    assert torch.equal(written, ref) and torch.equal(read, ref)
+    assert torch.equal(masks, ns.wall_masks_plain(pos_s, cs, c))
+    assert bool(masks.any())
+    masks.zero_()
+    ns.nsc_sweep_u(*args, read, masks)
+    assert not torch.equal(read, ref)
+
+
+@pytest.mark.cuda
+def test_nsc_wall_masks_check_inputs(card):
+    """U refuses wall masks of the wrong length or type and masks that
+    overlap another array; U reading the masks that U wrote gives the
+    writing launch's u, bit for bit."""
+    pos_s, ufree, cells, c, cs, dc, part, rev, g, wg = _nsc_sweep_inputs(
+        "cuda")
+    n = part.shape[0]
+    masks = torch.empty(n, dtype=torch.int32, device="cuda")
+    u = torch.empty_like(ufree)
+    args = (pos_s, ufree, g + 0.01, g, wg + 0.01, wg, 0.3, part, rev, cs, c)
+    with pytest.raises(ValueError):               # wrong length
+        ns.nsc_sweep_u(*args, u, masks[:-1])
+    with pytest.raises(ValueError):               # wrong type
+        ns.nsc_sweep_u(*args, u, masks.float())
+    with pytest.raises(ValueError):               # written masks are u
+        ns.nsc_sweep_u(*args, u, u.reshape(-1)[:n].view(torch.int32),
+                       write=True)
+    with pytest.raises(ValueError):               # written masks are pos
+        ns.nsc_sweep_u(*args, u, pos_s.reshape(-1)[:n].view(torch.int32),
+                       write=True)
+    with pytest.raises(ValueError):               # read masks are u
+        ns.nsc_sweep_u(*args, u, u.reshape(-1)[:n].view(torch.int32))
+    before = ns.nsc_sweep_u.launches
+    written = torch.empty_like(ufree)
+    ns.nsc_sweep_u(*args, written, masks, write=True)
+    ns.nsc_sweep_u(*args, u, masks)
+    torch.cuda.synchronize()
+    assert torch.equal(u, written)
+    assert torch.equal(masks, ns.wall_masks_plain(pos_s, cs, c))
+    assert ns.nsc_sweep_u.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_sph_adami_order_checks(card):
+    """A refuses a thread order of the wrong type or length, and gives the
+    same planes with its order given or made by the wrapper."""
+    feat, cells, c = _mini_dam_cells("cuda")
+    n = feat.shape[1]
+    adami, again = (feat.new_empty((sph.N_ADAMI, n)) for _ in range(2))
+    order = sph.adami_walk_order(feat, cells)
+    with pytest.raises(ValueError):               # wrong type
+        sph.sph_adami(feat, cells, c, adami, order.long())
+    with pytest.raises(ValueError):               # wrong length
+        sph.sph_adami(feat, cells, c, adami, order[:-1].contiguous())
+    sph.sph_adami(feat, cells, c, adami, order)
+    sph.sph_adami(feat, cells, c, again)
+    torch.cuda.synchronize()
+    assert torch.equal(adami, again)

@@ -31,6 +31,7 @@ from chrono_tpu_torch.convert import (
 )
 from chrono_tpu_torch.fsi.sph.pencil import bin_to_cells
 from chrono_tpu_torch.ops import nsc_pair as tk
+from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda.nsc_detect import (
     DetectConsts, class_offset, nsc_detect_plain,
 )
@@ -154,6 +155,44 @@ def test_wall_geometry_matches_jax(wall, theta):
         rt1, rt2 = jn._wall_tangents(ref[0])
         _close((*t1, *t2), (*rt1, *rt2))
     assert tk.wall_mu(wall) == (wall[4] if wall[0] == "plane" else wall[5])
+
+
+def test_wall_masks_match_jax_geometry():
+    """Sweep U's wall masks (their twin, ``wall_masks_plain``): bit w of a
+    body's mask against the JAX package's ``wall_geometry`` gap < envelope,
+    for every wall kind and axis, from bodies made from a seed; U's twin on
+    the masks gives U's twin's bits."""
+    rng = np.random.default_rng(41)
+    n = 600
+    pos = _rand(rng, (3, n), 0.0, 0.6)
+    p = tn.NSCPencilParams(radius=R, mass=0.5, mu=0.3, dt=1e-3,
+                           envelope=0.5 * R)
+    c = tn.nsc_static_params(p, WALLS_UNDER_TEST)
+    theta = 0.3
+    rows = [(np.cos(theta), np.sin(theta), w[4]) for w in WALLS_UNDER_TEST
+            if w[0] == "rotbox"]
+    cs = torch.tensor(rows, dtype=torch.float32)
+    tpos = torch.from_numpy(pos)
+    masks = ns.wall_masks_plain(tpos, cs, c).numpy()
+    for w, (wall, pose) in enumerate(zip(WALLS_UNDER_TEST,
+                                         ns.wall_poses(c, cs))):
+        jcs = None if pose is None else tuple(jnp.asarray(x.numpy())
+                                              for x in pose)
+        gap = np.asarray(jk.wall_geometry(wall, *jnp.asarray(pos), R,
+                                          jcs)[1])
+        held = gap < c.envelope
+        sure = np.abs(gap - c.envelope) > 1e-6
+        np.testing.assert_array_equal(((masks >> w) & 1)[sure] == 1,
+                                      held[sure])
+        assert held.any() and not held.all()
+    partners = torch.full((n, 2), -1, dtype=torch.int32)
+    g = torch.zeros((3, n, 2))
+    wg = torch.from_numpy(_rand(rng, (3, n, len(WALLS_UNDER_TEST)), 0.0,
+                                0.01))
+    ufree = torch.zeros((6, n))
+    args = (tpos, ufree, g, g, wg, wg, 0.3, partners, cs, c)
+    assert torch.equal(nsc_sweep_u_plain(*args, torch.from_numpy(masks)),
+                       nsc_sweep_u_plain(*args))
 
 
 # ------------------------------------------------------------ 2. detection
