@@ -8,18 +8,28 @@ once) and then runs:
 
 1. DEM parity on the card: kernel K1 (``dem_substep``) against its plain
    twin on the 120-particle box after one substep and after 3 cycles, and on
-   a random 64k-particle overlapping scene after one substep; kernel K2
-   (``dem_migrate``) against its twin, bit for bit, over 6 cycles;
+   a random 64k-particle overlapping scene after one substep; the slot
+   kernel K2 (``dem_migrate``) against its twin, bit for bit, over 6
+   cycles; the row kernel K2 (``dem_migrate_rows``) against its twin and
+   against the slot path (rows scattered to slot planes, ``dem_migrate``,
+   rows of its output), bit for bit, over 6 cycles of K1 at C = 16, at
+   C = 16 with the particles stirred by up to 0.45 cell a cycle, and at
+   C = 3 (cells overflow: the same landers kept), and a planted two-cell
+   jump that all three lose;
 2. the DEM settling box at full size: ``bench.py``'s pinned scene (1 M
    spheres, Hertz–Mindlin with single-step friction, C = 8, 2.1 d cells,
    100 substeps per cycle, migration) for 1 warm-up and 2 timed cycles
    through ``make_cell_dense_advance``, checked for overflow, loss, finite
    values, momentum (the scene has no wall contact, so the mean velocity is
-   pure free fall) and that every kernel launch of the run was counted;
-   then K1 against the float64 pair reference with two planted faults, K2
-   against its twin, each timed with CUDA events at the main path's shapes
-   (K1 on the cell-sorted rows it walks: M particles, its launch grid, its
-   occupied candidates a particle and its bound from those rows);
+   pure free fall) and that every kernel launch of the run was counted
+   (``dem_migrate_rows`` 3, the slot ``dem_migrate`` 0), with a digest of
+   the final state; then K1 against the float64 pair reference with two
+   planted faults, and after one cycle of K1 on the binned rows
+   ``dem_migrate_rows`` against its twin and the slot path, each timed
+   with CUDA events at the main path's shapes (K1 on the cell-sorted rows
+   it walks: M particles, its launch grid, its occupied candidates a
+   particle and its bound from those rows; K2 beside the slot path it
+   replaced and the slot kernel alone on the same state);
 3. SPH parity on the card: each of the three WCSPH sweeps (``sph_adami``,
    ``sph_momentum``, ``sph_continuity_drift``) against its twin on the mini
    dam of tests/test_sph_pencil.py (756 markers), for both viscosity
@@ -79,8 +89,8 @@ once) and then runs:
    the longer); then the same scene at 400,000 spheres (2 warm-up and 20
    timed steps; profiled runs of one and two steps that give a step's
    device time and each kernel's device time per launch (U's reading and
-   writing launches apart, beside U's bound); each kernel against its twin
-   there);
+   writing launches apart) beside its bound; each kernel against its twin
+   there); each size prints a digest of its state after the timed steps;
 9. the DEM forces path on the card: ``dem_forces`` against its twin on the
    120-particle box of phase 1 (both friction modes, random velocities and
    spins), and 3 cycles of ``make_cell_dense_advance(backend="pallas")`` on
@@ -109,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import time
@@ -141,7 +152,10 @@ from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
-from chrono_tpu_torch.dem.rows import neighbour_runs, rows_from_slots
+from chrono_tpu_torch.dem.rows import (
+    CellRows, neighbour_runs, rows_from_prefix_slots, rows_from_slots,
+    rows_to_planes,
+)
 from chrono_tpu_torch.ops.cuda.dem_forces import (
     dem_forces, dem_forces_plain, dem_forces_rows, dem_forces_rows_plain,
 )
@@ -150,7 +164,9 @@ from chrono_tpu_torch.ops.cuda.dem_substep import (
 )
 from chrono_tpu_torch.ops.cuda import nsc_detect as nd
 from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
-from chrono_tpu_torch.ops.cuda.migrate import dem_migrate, dem_migrate_plain
+from chrono_tpu_torch.ops.cuda.migrate import (
+    dem_migrate, dem_migrate_plain, dem_migrate_rows, dem_migrate_rows_plain,
+)
 from chrono_tpu_torch.ops.nsc_pair import wall_geometry
 from chrono_tpu_torch.solver.nsc_pencil import (
     NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
@@ -405,6 +421,151 @@ def k2_six_cycles():
         feat, ids = f2, i2
     require(moved > 0, "no particle changed cell in 6 cycles")
     return moved
+
+
+def k2_rows_binned(seed, capacity, device=None):
+    """The 120-particle box binned at ``capacity`` as the main path bins
+    it: ``(params, bcs, grid, rows, ids, feat, slot ids)``, the rows with
+    their particle ids (−1 on dead rows), and the slot planes and slot ids
+    they came from."""
+    dev = device or DEV
+    params, bcs, grid, pos, _ = small_scene(seed)
+    z = torch.zeros(pos.shape, device=dev)
+    field = to_cells(grid, capacity, torch.as_tensor(pos, device=dev), z, z)
+    rows, ids = rows_and_ids(field, len(pos))
+    return params, bcs, grid, rows, ids, field.feat, field.ids
+
+
+def state_digest(*arrays):
+    """sha256 of the arrays' bytes, in order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rows_and_ids(field, n):
+    """Rows of ``to_cells``'s slots (R = n + 1) and each row's particle id,
+    as ``make_cell_dense_advance`` lays them out before its first cycle."""
+    rows, row_of_slot = rows_from_prefix_slots(
+        field.feat, (field.feat[9] > 0.5).sum(1), n + 1)
+    ids = torch.full((n + 1,), -1, dtype=torch.int32, device=rows.cell.device)
+    ids[row_of_slot] = field.ids.reshape(-1)
+    return rows, ids
+
+
+def k2_slot_path(rows, feat, slot_ids, grid):
+    """K2 as the main path ran it through PR 10: the rows' state scattered
+    into the slot planes, the slot kernel ``dem_migrate`` (its twin on the
+    CPU), rows of its output: ``((rows', ids', landed), planes', slot
+    ids')``."""
+    n_rows = rows.n_rows
+    _, row_of_slot = rows_from_prefix_slots(feat, rows.table[:, 1], n_rows)
+    feat = feat.clone()
+    feat[0:9] = rows_to_planes(rows.state, row_of_slot).reshape(
+        9, *feat.shape[1:])
+    moved, moved_ids = torch.empty_like(feat), torch.empty_like(slot_ids)
+    landed = torch.empty(grid.n_cells, dtype=torch.int32, device=feat.device)
+    dem_migrate(feat, slot_ids, moved, moved_ids, landed, grid)
+    out, row_of_slot = rows_from_prefix_slots(moved, landed, n_rows)
+    ids = torch.full((n_rows,), -1, dtype=torch.int32, device=feat.device)
+    ids[row_of_slot] = moved_ids.reshape(-1)
+    return (out, ids, landed), moved, moved_ids
+
+
+def k2_rows_run(rows, ids, grid, capacity):
+    """``dem_migrate_rows`` into new buffers: ``(rows', ids', landed)``."""
+    out = CellRows(state=torch.empty_like(rows.state),
+                   cell=torch.empty_like(rows.cell),
+                   table=torch.empty_like(rows.table))
+    ids_out = torch.empty_like(ids)
+    landed = torch.empty(grid.n_cells, dtype=torch.int32,
+                         device=ids.device)
+    dem_migrate_rows(rows, ids, out, ids_out, landed, grid, capacity)
+    return out, ids_out, landed
+
+
+def k2_rows_differ(got, ref):
+    """The parts of two migrations' ``(rows, ids, landed)`` that differ."""
+    (r, i, n), (rr, ri, rn) = got, ref
+    parts = {"state": (r.state, rr.state), "cell": (r.cell, rr.cell),
+             "table": (r.table, rr.table), "ids": (i, ri),
+             "landed": (n, rn)}
+    return [k for k, (a, b) in parts.items() if not torch.equal(a, b)]
+
+
+def k2_rows_check(rows, ids, grid, capacity, feat, slot_ids, what):
+    """``dem_migrate_rows`` against its twin and against the slot path,
+    bit for bit: ``(its output, slot planes', slot ids')``."""
+    got = k2_rows_run(rows, ids, grid, capacity)
+    twin = dem_migrate_rows_plain(rows, ids, grid, capacity)
+    slot, feat, slot_ids = k2_slot_path(rows, feat, slot_ids, grid)
+    for name, ref in (("its twin", twin), ("the slot path", slot)):
+        bad = k2_rows_differ(got, ref)
+        require(not bad, f"dem_migrate_rows, {what}: {', '.join(bad)} "
+                f"differ from {name}")
+    return got, feat, slot_ids
+
+
+def k2_rows_cycles(capacity, stir, device=None):
+    """6 cycles of K1 on the box's rows, each ended by ``dem_migrate_rows``,
+    held to its twin and to the slot path bit for bit; with ``stir`` each
+    live particle also moves by up to 0.45 cell per axis (seed 3) before
+    the migration.  Returns the particles that changed cell, by id, and
+    the largest landing count."""
+    params, bcs, grid, rows, ids, feat, slot_ids = k2_rows_binned(
+        11, capacity, device)
+    coefs = substep_coefs(params, bcs, grid, capacity)
+    rng = np.random.default_rng(3)
+    n = rows.n_rows - 1
+    changed, most = 0, 0
+    for cycle in range(6):
+        state = rows.state
+        for _ in range(params.rebuild_every):
+            nxt = torch.zeros_like(state)
+            dem_substep_rows(replace(rows, state=state), nxt, coefs)
+            state = nxt
+        if stir:
+            kick = torch.as_tensor(rng.uniform(-0.45, 0.45, (n + 1, 3))
+                                   * grid.cell_size, dtype=torch.float32,
+                                   device=state.device)
+            state = state.clone()
+            state[0, :, :3] += torch.where((rows.cell >= 0)[:, None], kick,
+                                           0.0)
+        rows = replace(rows, state=state)
+        got, feat, slot_ids = k2_rows_check(
+            rows, ids, grid, capacity, feat, slot_ids,
+            f"C={capacity}, cycle {cycle}")
+        cell_of = [torch.full((n + 2,), -1, dtype=torch.int32,
+                              device=state.device) for _ in range(2)]
+        cell_of[0][ids.long()] = rows.cell          # dead rows: index −1
+        cell_of[1][got[1].long()] = got[0].cell
+        changed += int(((cell_of[0] != cell_of[1]) & (cell_of[0] >= 0)
+                        & (cell_of[1] >= 0))[:n].sum())
+        most = max(most, int(got[2].max()))
+        rows, ids = got[0], got[1]
+    return changed, most
+
+
+def k2_rows_jump(device=None):
+    """A particle moved two cells along x is found by no cell: the kernel,
+    its twin and the slot path all lose it.  Returns the loss."""
+    _, _, grid, rows, ids, feat, slot_ids = k2_rows_binned(11, 16, device)
+    nx, ny, nz = grid.dims
+    require(int(rows.cell[0]) // (ny * nz) + 2 < nx,
+            "row 0 cannot jump two cells along x")
+    state = rows.state.clone()
+    state[0, 0, 0] += 2.0 * grid.cell_size
+    rows = replace(rows, state=state)
+    (out, out_ids, landed), _, _ = k2_rows_check(
+        rows, ids, grid, 16, feat, slot_ids, "a two-cell jump")
+    loss = int(rows.table[:, 1].sum()) - int(landed.sum())
+    m = int(out.table[:, 1].sum())
+    require(m == int(landed.sum()) and not bool((out_ids == ids[0]).any())
+            and bool((out.cell[m:] == -1).all())
+            and not bool(out.state[:, m:].any()),
+            "dem_migrate_rows: the jumped particle was not dropped cleanly")
+    return loss
 
 
 # ---------------------------------------------------------------- phase 2
@@ -675,6 +836,7 @@ def main_path(card):
                                   migrate=True, device=DEV)
     z = np.zeros_like(pos)
     dem_substep_rows.launches = dem_migrate.launches = 0
+    dem_migrate_rows.launches = 0
     p, v, o, ovf = adv(pos, z, z, 1)                       # warm-up cycle
     require(int(ovf) == 0, f"warm-up overflow {int(ovf)}")
     torch.cuda.synchronize()
@@ -683,12 +845,13 @@ def main_path(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"dem_substep": dem_substep_rows.launches,
+                "dem_migrate_rows": dem_migrate_rows.launches,
                 "dem_migrate": dem_migrate.launches}
     require(int(ovf) == 0, f"overflow or loss {int(ovf)}")
     require(all(bool(torch.isfinite(a).all()) for a in (p, v, o)),
             "non-finite state")
-    require(launches == {"dem_substep": 300, "dem_migrate": 3},
-            f"launch counts {launches}")
+    require(launches == {"dem_substep": 300, "dem_migrate_rows": 3,
+                         "dem_migrate": 0}, f"launch counts {launches}")
     # no particle touches a wall in this horizon, so contact forces cancel
     # pairwise and the mean velocity is free fall: −g·t on z
     t_sim = 3 * params.rebuild_every * params.dt
@@ -702,42 +865,114 @@ def main_path(card):
     print(f"main path: {steps} substeps of {n} particles in {wall:.4f} s = "
           f"{n * steps / wall:.6e} particle-steps/s (bin, 200 substeps, "
           f"2 migrations, unbin; host clock) on {card}")
+    print(f"main path: final (pos, vel, omega) sha256 "
+          f"{state_digest(p, v, o)}")
 
     # each kernel against its twin at the main path's shapes
-    field, out, k1 = k1_at(params, bcs, grid, C, (p, v, o), "at 1M")
+    field, _, k1 = k1_at(params, bcs, grid, C, (p, v, o), "at 1M")
 
-    ids2 = torch.empty_like(field.ids)
-    count = torch.empty(grid.n_cells, dtype=torch.int32, device=DEV)
-    mig_out = torch.empty_like(out)
-    dem_migrate(out, field.ids, mig_out, ids2, count, grid)
-    rf, ri, rc = dem_migrate_plain(out, field.ids, grid)
-    require(torch.equal(mig_out, rf) and torch.equal(ids2, ri)
-            and torch.equal(count, rc), "K2 differs from its twin at 1M")
-    k2_err = float((mig_out - rf).abs().max())
-    del rf, ri, rc
-    k2_ms = cuda_ms(lambda: dem_migrate(out, field.ids, mig_out, ids2,
-                                        count, grid), 20)
-    k2_plain_ms = cuda_ms(lambda: dem_migrate_plain(out, field.ids, grid), 3)
-    print(f"K2 at 1M: bit-exact (max abs err {k2_err}), {k2_ms:.4f} ms "
-          f"(plain twin {k2_plain_ms:.4f} ms)")
-    n_slots = field.feat.shape[1] * C
-    n_valid = int((field.feat[9] > 0.5).sum())
-    # K2 reads the planes and ids, writes them and the per-cell count;
-    # its work is comparisons, a few per candidate of each valid particle
-    k2_bound = bound(2 * 11 * n_slots * 4 + grid.n_cells * 4, 27 * n_valid)
-    print(f"K2 at 1M: bound {k2_bound[0]:.4f} ms by {k2_bound[1]}")
+    k2_rows, k2 = k2_at(params, bcs, grid, C, field)
     return [
         {"name": "dem_substep", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/dem_substep.cu",
          "replaces": "; ".join(DEM_SUBSTEP_REPLACES),
          "launches": launches["dem_substep"], **k1, "library_ms": None},
+        {"name": "dem_migrate_rows", "route": "cuda",
+         "source": "chrono_tpu_torch/csrc/migrate.cu",
+         "replaces": K2_REPLACES,
+         "launches": launches["dem_migrate_rows"], **k2_rows,
+         "library_ms": None},
         {"name": "dem_migrate", "route": "cuda",
          "source": "chrono_tpu_torch/csrc/migrate.cu",
-         "replaces": "chrono_tpu/ops/pallas/migrate_kernel.py:130",
-         "launches": launches["dem_migrate"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "replaces": K2_REPLACES,
+         "launches": launches["dem_migrate"], **k2, "library_ms": None,
+         "note": "the slot-plane form; the main path runs dem_migrate_rows"},
     ]
+
+
+K2_REPLACES = "chrono_tpu/ops/pallas/migrate_kernel.py:130"
+# float32 operations of the key of a row: three subtractions, divisions,
+# floors and clips and the id's two multiply-adds
+K2_KEY_OPS = 14
+
+
+def k2_walk_candidates(rows, dims):
+    """The keys one walk of every destination cell's nine runs compares:
+    each live row once for each in-grid cell within one of its own."""
+    nx, ny, nz = dims
+    c = rows.cell[rows.cell >= 0].long()
+    i, j, k = c // (ny * nz), (c // nz) % ny, c % nz
+
+    def span(x, n):
+        return 1 + (x > 0).long() + (x < n - 1).long()
+
+    return int((span(i, nx) * span(j, ny) * span(k, nz)).sum())
+
+
+def k2_at(params, bcs, grid, C, field):
+    """K2 at the main path's shapes: one cycle of K1 (``rebuild_every``
+    substeps) on the rows of the binned state, then ``dem_migrate_rows``
+    against its twin and against the slot path bit for bit; the row
+    kernel, its twin, the slot kernel alone (on the same state's planes)
+    and the slot path with its upkeep (scatter to planes, the slot kernel,
+    rows of its output) timed with CUDA events; both kernels' bounds."""
+    n = int((field.feat[9] > 0.5).sum())
+    rows0, ids = rows_and_ids(field, field.perm.numel())
+    coefs = substep_coefs(params, bcs, grid, C)
+    state, spare = rows0.state, torch.zeros_like(rows0.state)
+    for _ in range(params.rebuild_every):
+        dem_substep_rows(replace(rows0, state=state), spare, coefs)
+        state, spare = spare, state
+    rows = replace(rows0, state=state)
+    del spare
+    got, planes, planes_ids = k2_rows_check(rows, ids, grid, C, field.feat,
+                                            field.ids, "at 1M")
+    moved = int((got[0].cell != rows.cell).sum())
+    ms = cuda_ms(lambda: k2_rows_run(rows, ids, grid, C), 20)
+    plain_ms = cuda_ms(lambda: dem_migrate_rows_plain(rows, ids, grid, C), 3)
+    path_ms = cuda_ms(lambda: k2_slot_path(rows, field.feat, field.ids,
+                                           grid), 20)
+    # the slot kernel alone, on the planes of the same state
+    _, row_of_slot = rows_from_prefix_slots(field.feat, rows.table[:, 1],
+                                            rows.n_rows)
+    feat = field.feat.clone()
+    feat[0:9] = rows_to_planes(rows.state, row_of_slot).reshape(
+        9, *feat.shape[1:])
+    ids2, mig_out = torch.empty_like(field.ids), torch.empty_like(feat)
+    count = torch.empty(grid.n_cells, dtype=torch.int32, device=DEV)
+    dem_migrate(feat, field.ids, mig_out, ids2, count, grid)
+    rf, ri, rc = dem_migrate_plain(feat, field.ids, grid)
+    require(torch.equal(mig_out, rf) and torch.equal(ids2, ri)
+            and torch.equal(count, rc), "K2 differs from its twin at 1M")
+    del rf, ri, rc
+    slot_ms = cuda_ms(lambda: dem_migrate(feat, field.ids, mig_out, ids2,
+                                          count, grid), 20)
+    slot_plain_ms = cuda_ms(lambda: dem_migrate_plain(feat, field.ids,
+                                                      grid), 3)
+    m_out = int(got[0].table[:, 1].sum())
+    # rows: the live rows' state, cell and id in; every row out (the dead
+    # ones zeroed); the table in, the table and landed out
+    rows_bound = bound(56 * n + 56 * rows.n_rows + 20 * grid.n_cells,
+                       K2_KEY_OPS * n + k2_walk_candidates(rows, grid.dims))
+    n_slots = feat.shape[1] * C
+    # slots: the planes and ids in and out, the per-cell count; its work is
+    # comparisons, a few per candidate of each valid particle
+    slot_bound = bound(2 * 11 * n_slots * 4 + grid.n_cells * 4, 27 * n)
+    print(f"K2 at 1M after one cycle ({moved} of {m_out} rows changed "
+          f"cell): dem_migrate_rows bit-exact against its twin and the "
+          f"slot path, {ms:.4f} ms a call of its three launches (plain twin "
+          f"{plain_ms:.4f} ms), bound {rows_bound[0]:.4f} ms by "
+          f"{rows_bound[1]}; the slot path it replaced (scatter to planes, "
+          f"dem_migrate, rows of its output) {path_ms:.4f} ms, of it "
+          f"dem_migrate {slot_ms:.4f} ms (bit-exact, plain twin "
+          f"{slot_plain_ms:.4f} ms, bound {slot_bound[0]:.4f} ms by "
+          f"{slot_bound[1]}) on the same state")
+    row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": rows_bound[0], "bound_by": rows_bound[1],
+           "slot_path_ms": path_ms}
+    slot = {"max_abs_err": 0.0, "ms": slot_ms, "plain_ms": slot_plain_ms,
+            "bound_ms": slot_bound[0], "bound_by": slot_bound[1]}
+    return row, slot
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2188,7 +2423,7 @@ def mixer_main_path(card, n_target=40_000, warm=25, steps=25):
     print(f"NSC mixer {n}: {steps} steps in {wall:.4f} s = {rate:.6e} DVI "
           f"iterations/s, {wall / steps * 1e3:.4f} ms/step, RTF "
           f"{wall / (steps * p.dt):.4f} (host clock after synchronize) on "
-          f"{card}")
+          f"{card}; state after them sha256 {state_digest(pos, vel, om)}")
     by_name, seen, _ = nsc_profile(f"one mixer step at {n}", lambda: adv(
         pos, vel, om, 1, theta0=[theta]))
     u_modes = nsc_u_modes(by_name, seen, n)
@@ -2283,10 +2518,13 @@ def mixer_large(card, n_target=400_000, warm=2, steps=20):
     print(f"NSC kernels vs twins at {n}: {format_errs(errs)}")
     bounds = nsc_bounds(n, 6, walls, cells, inp, pos_s, c, cs)[2]
     nsc_u_modes(by_name, seen, n)
-    bms, by = bounds["nsc_sweep_u"]
-    print(f"nsc_sweep_u at {n}: {ms['nsc_sweep_u']:.4f} ms per launch over "
-          f"the profiled steps' launches, bound {bms:.6f} ms by {by}")
+    for k in NSC_KERNELS:
+        bms, by = bounds[k]
+        print(f"{k} at {n}: {ms[k]:.4f} ms per launch over the profiled "
+              f"steps' launches, bound {bms:.6f} ms by {by}")
     rate = p.n_iter * steps / wall
+    print(f"NSC mixer {n}: state after the timed steps sha256 "
+          f"{state_digest(pos, vel, om)}")
     print(f"NSC mixer {n}: grid {grid.dims}, ovf 0, {contacts} contacts, "
           f"blade torque about x {float(wtorque[5, 0]):.6f} N·m; {steps} "
           f"steps in {wall:.4f} s = {rate:.6e} DVI iterations/s, "
@@ -2662,6 +2900,18 @@ def main():
           f"err {k1_one_substep(*overlap_scene()):.3e}")
     print(f"K2 vs twin, 6 cycles: bit-exact "
           f"({k2_six_cycles()} cells changed occupants)")
+    for C, stir in ((16, False), (16, True), (3, True)):
+        changed, most = k2_rows_cycles(C, stir)
+        require(changed > 0 and (most > C) == (C == 3),
+                f"dem_migrate_rows, C={C}: {changed} particles changed "
+                f"cell, at most {most} landed in a cell")
+        print(f"dem_migrate_rows vs twin and slot path, 6 cycles, C={C}"
+              f"{', stirred' if stir else ''}: bit-exact ({changed} "
+              f"particles changed cell, at most {most} landed in a cell)")
+    loss = k2_rows_jump()
+    require(loss == 1, f"a two-cell jump lost {loss} particles, not 1")
+    print(f"dem_migrate_rows, a two-cell jump: lost {loss} particle, as "
+          "its twin and the slot path lose it")
     print(f"phase 1 took {time.perf_counter() - t0:.2f} s")
 
     # phase 2: the DEM main path at full size

@@ -23,9 +23,9 @@ out once per rebin.  Two kinds of substep:
 A cycle is ``rebuild_every`` substeps followed by a rebin: a full sort
 (:func:`to_rows` straight to rows, unbinned through each particle's row),
 or for ``"flat"`` with ``migrate=True`` the one-cell-per-axis migration
-(kernel K2, ``ops.cuda.migrate``) on slot planes, whose output and landing
-counts give the next cycle's rows.  Binning, unbinning and the cycle loop
-are plain PyTorch on every device.
+(kernel K2, ``ops.cuda.migrate`` ``dem_migrate_rows``) from the cycle's rows
+to the next cycle's, carrying each row's particle id.  Binning, unbinning
+and the cycle loop are plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from chrono_tpu_torch.dem.forces import wall_forces
 from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
 from chrono_tpu_torch.dem.rows import (
     CellRows, pack_rows, rows_from_prefix_slots, rows_of_cells,
-    rows_to_planes,
 )
 from chrono_tpu_torch.ops.cuda.dem_forces import (
     PairCoefs, dem_forces, dem_forces_rows,
@@ -48,7 +47,7 @@ from chrono_tpu_torch.ops.cuda.dem_forces import (
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     MAX_WALLS, SubstepCoefs, dem_substep_rows,
 )
-from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
+from chrono_tpu_torch.ops.cuda.migrate import dem_migrate_rows
 
 _MASK = 9
 
@@ -292,30 +291,34 @@ def make_cell_dense_advance(params: DEMParams, bcs: DEMBoundaries,
         pos, vel, omega = as_tensor(pos), as_tensor(vel), as_tensor(omega)
         n = pos.shape[0]
         field = to_cells(grid, capacity, pos, vel, omega)
-        feat, ids, ovf = field.feat, field.ids, field.overflow
-        feat_b, ids_b = torch.empty_like(feat), torch.empty_like(ids)
-        count = (feat[_MASK] > 0.5).sum(1)
+        ovf = field.overflow
+        # n + 1 rows: the last is dead and zero, and empty slots gather it
+        rows, row_of_slot = rows_from_prefix_slots(
+            field.feat, (field.feat[_MASK] > 0.5).sum(1), n + 1)
+        ids = torch.full((n + 1,), -1, dtype=torch.int32, device=device)
+        ids[row_of_slot] = field.ids.reshape(-1)   # empty slots: −1, row n
+        del field, row_of_slot
+        nxt = CellRows(state=torch.empty_like(rows.state),
+                       cell=torch.empty_like(rows.cell),
+                       table=torch.empty_like(rows.table))
+        ids_b = torch.empty_like(ids)
         landed = torch.empty(grid.n_cells, dtype=torch.int32, device=device)
         for _ in range(n_cycles):
-            # n + 1 rows: the last is dead and zero, and empty slots gather it
-            rows, row_of_slot = rows_from_prefix_slots(feat, count, n + 1)
             state = substeps(rows)
-            feat[0:9] = rows_to_planes(state, row_of_slot).reshape(
-                9, *feat.shape[1:])
-            dem_migrate(feat, ids, feat_b, ids_b, landed, grid)
-            feat, feat_b, ids, ids_b = feat_b, feat, ids_b, ids
-            n_before = count.sum()
-            count = torch.clamp(landed, max=capacity)
-            lost = (n_before - count.sum()).abs()
+            n_before = rows.table[:, 1].sum()
+            dem_migrate_rows(replace(rows, state=state), ids, nxt, ids_b,
+                             landed, grid, capacity)
+            rows, nxt = nxt, replace(rows, state=state)
+            ids, ids_b = ids_b, ids
+            lost = (n_before - rows.table[:, 1].sum()).abs()
             ovf = torch.maximum(ovf, torch.maximum(landed.max() - capacity,
                                                    lost).to(torch.int32))
-        # unbin through the carried ids (empty slots go to the spare row n)
-        valid = feat[_MASK].reshape(-1) > 0.5
-        row = torch.where(valid, ids.reshape(-1).long(), n)
+        # unbin through the carried ids (dead rows go to the spare row n)
+        row = torch.where(ids >= 0, ids.long(), n)
         out = []
-        for f0 in (0, 3, 6):
-            buf = feat.new_zeros((n + 1, 3))
-            buf[row] = feat[f0:f0 + 3].reshape(3, -1).T
+        for k in range(3):
+            buf = pos.new_zeros((n + 1, 3))
+            buf[row] = rows.state[k, :, :3]
             out.append(buf[:n])
         return (*out, ovf)
 

@@ -13,11 +13,14 @@ partner after it in sorted order.  Partners are ranked in that order (and
 by sorted index within a cell), as ``detect_half`` ranks its codes, so
 the P-th partner and the overflow are the JAX path's.
 
-``nsc_detect`` (``csrc/nsc_detect.cu``, one thread per body) and its twin
-``nsc_detect_plain`` agree bit for bit: the distance is computed in the
-same operations and roundings (``|d|² = (dx² + dy²) + dz²``, no fused
-multiply-add).  Unlike the JAX binning, a cell holding more than C bodies
-drops none of them; the caller reports the excess as overflow.
+``nsc_detect`` (``csrc/nsc_detect.cu``: a group of lanes a body, as many
+as :func:`lanes_for` gives, walks six contiguous runs of sorted bodies,
+the four forward columns, the cell above and the own cell, its hits
+ranked in walk order by a ballot) and its twin ``nsc_detect_plain`` agree
+bit for bit: the distance is computed in the same operations and
+roundings (``|d|² = (dx² + dy²) + dz²``, no fused multiply-add).  Unlike
+the JAX binning, a cell holding more than C bodies drops none of them;
+the caller reports the excess as overflow.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ from chrono_tpu_torch.ops.cuda.sph_substep import (
 )
 
 FWD_XY = ((0, 1), (1, -1), (1, 0), (1, 1))
+# the most lanes of a warp that walk one body's runs together (the kernel
+# takes 1, 2, 4 or 8)
+MAX_LANES = 8
 N_CLASS = 14
 # candidate pairs per chunk of the plain twin
 _TWIN_PAIRS = 1 << 22
@@ -134,21 +140,50 @@ def reverse_table(partners: torch.Tensor) -> ReverseTable:
                         entry=order.to(torch.int32))
 
 
+def _launcher(name: str = "nsc_detect"):
+    return _bind(name, _build.DEFINES)
+
+
 @functools.cache
-def _launcher():
-    fn = _build.load("nsc_detect").nsc_detect_launch
+def _bind(name: str, defines: tuple):
+    """The launcher of the build that ``_build.load`` returns under
+    ``defines`` (the cache key: each build binds its own)."""
+    fn = getattr(_build.load("nsc_detect"), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(pos, cells, P, c, partners, count):
+@functools.cache
+def _resident_threads(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+
+
+def lanes_for(n: int, device: torch.device) -> int:
+    """Lanes a body: the fewest of 1, 2, 4 and 8 that put at least half as
+    many threads in flight as the card holds at once (SMs × resident
+    threads), else 8.  Lanes buy parallelism at the price of a vote a step:
+    on an NVIDIA H100 80GB HBM3 at 700 W (``kernel_turns.py``) one lane a
+    body was fastest at 400,000 bodies (0.0511 ms a launch, two lanes
+    0.0729) and four at 40,000 (0.0119 ms; eight 0.0140, one 0.0167)."""
+    lanes = 1
+    while (lanes < MAX_LANES
+           and 2 * n * lanes < _resident_threads(device.index)):
+        lanes *= 2
+    return lanes
+
+
+def _launch(pos, cells, P, c, partners, count, lanes=None):
     n = pos.shape[1]
     dev = pos.device
     check_planes("pos", pos, 3, n, dev)
     check_cells(cells, dev, 3)
-    if P < 1 or n * P >= 2 ** 31:
+    lanes = lanes_for(n, dev) if lanes is None else lanes
+    if P < 1 or n * max(P, lanes) >= 2 ** 31:
         raise ValueError(f"P = {P} with {n} bodies is outside the kernel's "
                          "range")
     for label, t, shape in (("partners", partners, (n, P)),
@@ -160,7 +195,7 @@ def _launch(pos, cells, P, c, partners, count):
     err = _launcher()(pos.data_ptr(), cells.cell.data_ptr(),
                       cells.start.data_ptr(), cells.count.data_ptr(),
                       partners.data_ptr(), count.data_ptr(), n,
-                      *cells.dims, P, c.two_r, c.envelope,
+                      *cells.dims, P, c.two_r, c.envelope, lanes,
                       torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"nsc_detect launch failed: cudaError {err}")

@@ -1,18 +1,25 @@
 // A CPU stand-in for the parts of the CUDA runtime that the port's pair-walk
-// kernels and the NSC sweeps use, so that tests/test_torch_emulated_walks.py
-// can compile their sources with g++ and run them on CPU threads: one
-// std::thread per CUDA thread, __any_sync on a barrier of the warp's 32
-// threads, grid.sync() on a barrier of the whole grid, dynamic shared memory
-// per block.  Only what those kernels need; the arithmetic is the host
-// compiler's, so results match the card to rounding, not bit for bit.
+// kernels, the NSC sweeps and detection, and the DEM row migration use, so
+// that tests/test_torch_emulated_walks.py can compile their sources with g++
+// and run them on CPU threads: one std::thread per CUDA thread, __any_sync
+// on a barrier of the warp's 32 threads, __ballot_sync, __match_any_sync
+// and __syncwarp on a barrier of the lanes in their mask, __syncthreads() on
+// a barrier of the block, grid.sync() on a barrier of the whole grid,
+// dynamic shared memory per block.  Only what those kernels need; the
+// arithmetic is the host compiler's, so results match the card to
+// rounding, not bit for bit, except where a kernel spells out its rounding
+// (__fadd_rn and the like, exact here too).
 #pragma once
 
 #include <algorithm>
 #include <barrier>
+#include <bit>
 #include <cmath>
 #include <cstddef>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <tuple>
 #include <type_traits>
@@ -35,6 +42,10 @@ struct alignas(16) float4 {
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
 
 struct dim3 {
   unsigned x, y, z;
@@ -77,15 +88,33 @@ inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
 inline float __fmaf_rn(float a, float b, float c) {
   return std::fma(a, b, c);
 }
+// one IEEE single operation each, rounded to nearest (the host's SSE)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline int __popc(unsigned v) { return std::popcount(v); }
 
 namespace emu {
 
 struct Warp {
   std::barrier<> bar{32};
   bool votes[32];
+  int values[32];
+  std::mutex lock;
+  std::map<unsigned, std::unique_ptr<std::barrier<>>> groups;  // by mask
+
+  // the barrier of the lanes in `mask`, made by the first to ask
+  std::barrier<>& group(unsigned mask) {
+    std::lock_guard<std::mutex> hold(lock);
+    auto& b = groups[mask];
+    if (!b) b = std::make_unique<std::barrier<>>(std::popcount(mask));
+    return *b;
+  }
 };
 inline std::vector<std::unique_ptr<Warp>> warps;   // by global warp id
 inline std::unique_ptr<std::barrier<>> grid_barrier;
+inline thread_local std::barrier<>* block_barrier;
 
 // Runs fn on grid x block threads: block by block, or every block at once
 // for a cooperative launch (whose grid.sync() needs them all).
@@ -102,6 +131,9 @@ inline void run(dim3 grid, dim3 block, size_t smem, cudaStream_t,
   for (unsigned b0 = 0; b0 < grid.x; b0 += together) {
     std::vector<std::vector<char>> mem(together,
                                        std::vector<char>(smem + 16));
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    for (unsigned b = 0; b < together; ++b)
+      bars.push_back(std::make_unique<std::barrier<>>(block.x));
     std::vector<std::thread> threads;
     for (unsigned b = b0; b < b0 + together; ++b)
       for (unsigned t = 0; t < block.x; ++t)
@@ -109,6 +141,7 @@ inline void run(dim3 grid, dim3 block, size_t smem, cudaStream_t,
           blockIdx = dim3(b);
           threadIdx = dim3(t);
           emu_smem = mem[b - b0].data();
+          block_barrier = bars[b - b0].get();
           fn();
         });
     for (auto& t : threads) t.join();
@@ -139,3 +172,36 @@ inline bool __any_sync(unsigned, bool p) {
   w.bar.arrive_and_wait();
   return any;
 }
+
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  auto& w = *emu::warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
+  auto& bar = w.group(mask);
+  w.votes[threadIdx.x & 31] = p;
+  bar.arrive_and_wait();
+  unsigned votes = 0;
+  for (unsigned lane = 0; lane < 32; ++lane)
+    if ((mask >> lane & 1u) && w.votes[lane]) votes |= 1u << lane;
+  bar.arrive_and_wait();
+  return votes;
+}
+
+inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+
+inline unsigned __match_any_sync(unsigned mask, int v) {
+  auto& w = *emu::warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
+  auto& bar = w.group(mask);
+  w.values[threadIdx.x & 31] = v;
+  bar.arrive_and_wait();
+  unsigned same = 0;
+  for (unsigned lane = 0; lane < 32; ++lane)
+    if ((mask >> lane & 1u) && w.values[lane] == v) same |= 1u << lane;
+  bar.arrive_and_wait();
+  return same;
+}
+
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  auto& w = *emu::warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
+  w.group(mask).arrive_and_wait();
+}
+
+inline int __clz(unsigned v) { return std::countl_zero(v); }

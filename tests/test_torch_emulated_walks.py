@@ -1,9 +1,10 @@
-"""The CUDA sources of the compacted pair walk and of the NSC sweeps, run on
-the CPU.
+"""The CUDA sources of the compacted pair walk, of the NSC sweeps and
+detection, and of the DEM row migration, run on the CPU.
 
-``csrc/sph_substep.cu``, ``csrc/crm_substep.cu``, ``csrc/crm_outer.cu`` and
-``csrc/nsc_sweep.cu`` are compiled with g++ against ``tests/cuda_emu`` (one
-CPU thread per CUDA thread, warp votes and grid barriers on
+``csrc/sph_substep.cu``, ``csrc/crm_substep.cu``, ``csrc/crm_outer.cu``,
+``csrc/nsc_sweep.cu``, ``csrc/nsc_detect.cu`` and ``csrc/migrate.cu`` are
+compiled with g++ against ``tests/cuda_emu`` (one CPU thread per CUDA
+thread, warp votes, ballots and block and grid barriers on
 ``std::barrier``) and launched through the wrappers' own ctypes signatures
 on CPU tensors.  So the walk's logic (the nine runs and the cell cap, the
 warp votes, the hit buffer and its flushes, ``crm_outer``'s neighbour list
@@ -12,7 +13,12 @@ each kind) are held here to the plain twins and to the per-sweep kernels,
 without a card.  So are the per-sweep CRM M's neighbour list and G's
 replay of it: against the twins, and against ``crm_outer`` bit for bit on a
 state that moved after binning, with a planted fault (a list short of one
-neighbour) that must show.  The arithmetic is the host compiler's: the
+neighbour) that must show.  ``nsc_detect``'s lane groups and the row
+migration's three passes (keys, counts and a block scan, the copy) are held
+to their twins exactly, at the faces, edges and corners of a small grid and
+past P or C; a copy of each source with one line changed (a hit ranked out
+of walk order, a lander's rank off by one) is built beside it and must
+differ.  The arithmetic is the host compiler's: the
 kernels match the twins to the tolerances ``chip_smoke.py`` holds the card
 to, and each other bit for bit where they run the same code.  Skips
 without g++.
@@ -23,6 +29,7 @@ import re
 import shutil
 import subprocess
 from contextlib import contextmanager
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -30,18 +37,30 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from chrono_tpu_torch.dem.rows import CellRows, rows_from_prefix_slots
 from chrono_tpu_torch.fsi.sph.crm_pencil import crm_state_to_cells
 from chrono_tpu_torch.fsi.sph.pencil import state_to_cells
 from chrono_tpu_torch.fsi.sph.state import FLUID
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
+from chrono_tpu_torch.ops.cuda import migrate as mig
 from chrono_tpu_torch.ops.cuda import nsc_detect as nd
 from chrono_tpu_torch.ops.cuda import nsc_sweep as ns
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
 from chrono_tpu_torch.solver.nsc_pencil import nsc_static_params
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-SOURCES = ("sph_substep", "crm_substep", "crm_outer", "nsc_sweep")
+SOURCES = ("sph_substep", "crm_substep", "crm_outer", "nsc_sweep",
+           "nsc_detect", "migrate")
+# planted faults: a source with one line changed, built beside the others
+MUTANTS = {
+    # a step's hits ranked from the highest lane down
+    "detect_out_of_order": ("nsc_detect", "__popc(votes & below)",
+                            "__popc(votes & ~below & ~(1u << wl))"),
+    # each cell's landers placed one row further on
+    "lander_rank_off_by_one": ("migrate", "count[q] + __popc(same & below)",
+                               "count[q] + __popc(same & below) + 1"),
+}
 
 
 def _for_the_cpu(src: str) -> str:
@@ -50,7 +69,7 @@ def _for_the_cpu(src: str) -> str:
     the cooperative launch."""
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = static_cast<\1*>(emu_smem);", src)
-    src = re.sub(r"(\w+)\s*<<<(.*?)>>>\s*\((.*?)\);",
+    src = re.sub(r"(\w+(?:<\w+>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                  r"emu::run(\2, [&] { \1(\3); });", src, flags=re.S)
     return re.sub(r"cudaLaunchCooperativeKernel\(\s*"
                   r"reinterpret_cast<const void\*>\((\w+)\),",
@@ -65,9 +84,14 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("emulated")
     procs = []
-    for name in SOURCES:
+    jobs = {name: (name, None, None) for name in SOURCES} | MUTANTS
+    for name, (source, old, new) in jobs.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        if old is not None:
+            assert text.count(old) == 1, f"{name}: {old!r} not in {source}"
+            text = text.replace(old, new)
         src = out / f"{name}.cpp"
-        src.write_text(_for_the_cpu((_build.CSRC / f"{name}.cu").read_text()))
+        src.write_text(_for_the_cpu(text))
         procs.append((name, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
              f"-I{EMU}", f"-I{_build.CSRC}", "-o", str(out / f"{name}.so"),
@@ -76,23 +100,25 @@ def libs(tmp_path_factory):
     for name, proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, f"g++ failed on {name}:\n{err}"
-    return {name: ctypes.CDLL(str(out / f"{name}.so")) for name in SOURCES}
+    return {name: ctypes.CDLL(str(out / f"{name}.so")) for name in jobs}
 
 
 @contextmanager
-def _emulated(libs):
-    """Inside the block the wrappers' launchers bind the CPU builds."""
+def _emulated(libs, mutant=None):
+    """Inside the block the wrappers' launchers bind the CPU builds, with
+    the planted fault ``mutant`` in place of its source."""
     saved = _build.load
-    _build.load = lambda name: libs[name]
+    swap = {MUTANTS[mutant][0]: mutant} if mutant else {}
+    _build.load = lambda name: libs[swap.get(name, name)]
     try:
-        with _build.variant("CPU_EMULATION"):
+        with _build.variant("CPU_EMULATION", *swap.values()):
             yield
     finally:
         _build.load = saved
 
 
-def _launch(libs, module, name, *args):
-    with _emulated(libs):
+def _launch(libs, module, name, *args, mutant=None):
+    with _emulated(libs, mutant):
         fn = module._launcher(name)
     assert fn(*args, None, 0) == 0, f"{name} refused its arguments"
 
@@ -635,3 +661,137 @@ def test_emulated_adami_walks_solids_only(libs, at_cap):
     keep = ~walk
     assert torch.equal(got[0, keep], feat[sph.PRS, keep])
     assert torch.equal(got[1:4, keep], feat[3:6, keep])
+
+
+# ------------------------------------------------------- NSC detection
+
+
+def _detect_scene():
+    """300 spheres of r = 0.025 drawn uniformly over a (4, 3, 5) grid of
+    0.1 m cells (seed 23), so that every face, edge and corner cell holds
+    bodies and pairs, binned as a DVI step bins them."""
+    p = cs.NSCPencilParams(radius=0.025, mass=0.5, mu=0.3, dt=1e-3,
+                           envelope=0.005)
+    grid = cs.GridSpec(cell_size=0.1, dims=(4, 3, 5))
+    rng = np.random.default_rng(23)
+    pos = (rng.uniform(0.0, 1.0, (300, 3))
+           * np.array([0.4, 0.3, 0.5])).astype(np.float32)
+    z = np.zeros_like(pos)
+    pos_s, _, cells, _ = cs.nsc_bin(grid, pos, z, z, p, device="cpu")
+    assert bool((cells.count > 0).all())
+    return pos_s, cells, nd.DetectConsts.of(p.radius, p.envelope)
+
+
+def _detect(libs, pos_s, cells, P, dc, lanes, mutant=None):
+    n = pos_s.shape[1]
+    part = torch.empty((n, P), dtype=torch.int32)
+    count = torch.empty(n, dtype=torch.int32)
+    _launch(libs, nd, "nsc_detect", pos_s.data_ptr(), *_table(cells),
+            part.data_ptr(), count.data_ptr(), n, *cells.dims, P, dc.two_r,
+            dc.envelope, lanes, mutant=mutant)
+    return part, count
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [12, 2])
+def test_emulated_detect_matches_twin(libs, lanes, P):
+    """The six runs walked by groups of ``lanes`` lanes give the twin's
+    partner table and counts exactly, at P = 12 and past P = 2."""
+    pos_s, cells, dc = _detect_scene()
+    part, count = _detect(libs, pos_s, cells, P, dc, lanes)
+    ref_part, ref_count = nd.nsc_detect_plain(pos_s, cells, P, dc)
+    assert torch.equal(part, ref_part) and torch.equal(count, ref_count)
+    assert (int(count.max()) > P) == (P == 2)
+    assert bool((count == 0).any()) and int(count.sum()) > 300
+
+
+def test_emulated_detect_out_of_walk_order_differs(libs):
+    """A build that ranks a step's hits from the highest lane down gives
+    another partner table (the same counts)."""
+    pos_s, cells, dc = _detect_scene()
+    part, count = _detect(libs, pos_s, cells, 12, dc, 8,
+                          mutant="detect_out_of_order")
+    ref_part, ref_count = nd.nsc_detect_plain(pos_s, cells, 12, dc)
+    assert torch.equal(count, ref_count)
+    assert not torch.equal(part, ref_part)
+
+
+# ------------------------------------------------------ DEM row migration
+
+
+def _migrate_scene(capacity, jump=False, dims=(4, 3, 5)):
+    """Particles drawn uniformly over a grid of 0.1 m cells, 20 a cell on
+    average (seed 31), binned at ``capacity`` into rows with their ids,
+    then each moved by up to 0.9 cell per axis (seed 37), some past the
+    grid's faces (clipped to its edge cells); with ``jump`` the first row
+    moves two cells along x.  The default grid has one segment of a
+    column per warp; (2, 2, 70) has three, the last 6 cells wide."""
+    grid = cs.GridSpec(cell_size=0.1, dims=dims)
+    rng = np.random.default_rng(31)
+    n = 20 * grid.n_cells
+    pos = torch.as_tensor(rng.uniform(0.0, 1.0, (n, 3))
+                          * 0.1 * np.array(dims), dtype=torch.float32)
+    field = cs.to_cells(grid, capacity, pos, pos * 2.0, pos * 3.0)
+    rows, row_of_slot = rows_from_prefix_slots(
+        field.feat, (field.feat[9] > 0.5).sum(1), n + 1)
+    ids = torch.full((n + 1,), -1, dtype=torch.int32)
+    ids[row_of_slot] = field.ids.reshape(-1)
+    rng = np.random.default_rng(37)
+    live = (rows.cell >= 0)[:, None]
+    state = rows.state.clone()
+    state[0, :, :3] += torch.as_tensor(
+        rng.uniform(-0.09, 0.09, (n + 1, 3)), dtype=torch.float32) * live
+    if jump:
+        state[0, 0, 0] = 0.25              # row 0 lies in the first x layer
+    return replace(rows, state=state), ids, grid
+
+
+def _migrate(libs, rows, ids, grid, capacity, mutant=None):
+    n_rows, n_cells = rows.n_rows, grid.n_cells
+    out = CellRows(state=torch.empty_like(rows.state),
+                   cell=torch.empty_like(rows.cell),
+                   table=torch.empty_like(rows.table))
+    ids_out, landed = torch.empty_like(ids), torch.empty(n_cells,
+                                                         dtype=torch.int32)
+    key = torch.empty(n_rows, dtype=torch.int32)
+    n_blocks = mig.row_blocks(grid)
+    block_total = torch.empty(n_blocks, dtype=torch.int32)
+    params = mig._params(grid, capacity)
+    _launch(libs, mig, "dem_migrate_rows", *(t.data_ptr() for t in (
+        rows.state, rows.cell, rows.table, ids, out.state, out.cell,
+        out.table, ids_out, landed, key, block_total)), n_rows, n_cells,
+        n_blocks, ctypes.byref(params), mutant=mutant)
+    return out, ids_out, landed
+
+
+def _same_rows(got, ref):
+    return all(torch.equal(a, b) for a, b in (
+        (got[0].state, ref[0].state), (got[0].cell, ref[0].cell),
+        (got[0].table, ref[0].table), (got[1], ref[1]), (got[2], ref[2])))
+
+
+@pytest.mark.parametrize("capacity,jump,dims", [
+    (64, False, (4, 3, 5)), (16, False, (4, 3, 5)), (64, True, (4, 3, 5)),
+    (64, False, (2, 2, 70))])
+def test_emulated_migrate_rows_matches_twin(libs, capacity, jump, dims):
+    """The key pass, the counting sweep with its block scan, and the
+    copying sweep give the twin's rows, ids and landing counts exactly:
+    with every particle landing (C = 64), past C = 16 (cells overflow: the
+    same landers kept), with a two-cell jump (lost by both), and with three
+    segments a column."""
+    rows, ids, grid = _migrate_scene(capacity, jump, dims)
+    got = _migrate(libs, rows, ids, grid, capacity)
+    ref = mig.dem_migrate_rows_plain(rows, ids, grid, capacity)
+    assert _same_rows(got, ref)
+    n_live = int(rows.table[:, 1].sum())
+    assert bool((got[0].cell[:n_live] != rows.cell[:n_live]).any())
+    assert (int(got[2].max()) > capacity) == (capacity == 16)
+    assert (int(got[2].sum()) == n_live - 1) == jump
+
+
+def test_emulated_migrate_rows_rank_off_by_one_differs(libs):
+    rows, ids, grid = _migrate_scene(64)
+    got = _migrate(libs, rows, ids, grid, 64,
+                   mutant="lander_rank_off_by_one")
+    assert not _same_rows(got, mig.dem_migrate_rows_plain(rows, ids, grid,
+                                                          64))

@@ -34,7 +34,7 @@ from chrono_tpu_torch.ops.cuda.dem_forces import (
 from chrono_tpu_torch.ops.cuda.dem_substep import (
     dem_substep, dem_substep_rows, dem_substep_rows_plain,
 )
-from chrono_tpu_torch.ops.cuda.migrate import dem_migrate
+from chrono_tpu_torch.ops.cuda.migrate import dem_migrate, dem_migrate_rows
 
 SPH_SWEEPS = ("sph_adami", "sph_momentum", "sph_continuity_drift")
 CRM_KERNELS = ("crm_momentum", "crm_gradv_stress", "crm_outer_substeps")
@@ -227,6 +227,19 @@ def test_migrate_kernel_matches_twin_bitwise(card):
     n = dem_migrate.launches
     assert card.k2_six_cycles() > 0
     assert dem_migrate.launches == n + 6
+
+
+@pytest.mark.cuda
+def test_migrate_rows_kernel_matches_twin_and_slot_path(card):
+    """Phase 1's checks of ``dem_migrate_rows``: bit for bit against its
+    twin and the slot path over 6 cycles at C = 16, stirred, and past
+    C = 3; a two-cell jump lost as the slot path loses it."""
+    n = dem_migrate_rows.launches
+    for C, stir in ((16, False), (16, True), (3, True)):
+        changed, most = card.k2_rows_cycles(C, stir)
+        assert changed > 0 and (most > C) == (C == 3)
+    assert card.k2_rows_jump() == 1
+    assert dem_migrate_rows.launches == n + 19
 
 
 @pytest.mark.cuda
