@@ -107,7 +107,21 @@ once) and then runs:
    then K1 or ``dem_forces`` against the float64 pair reference with two
    planted faults and timed on the scene's rows, beside its row twin; the
    forces path's wall pass and Euler step on the rows timed, one sort
-   rebin timed, and one forces-path cycle traced with ``torch.profiler``.
+   rebin timed, and one forces-path cycle traced with ``torch.profiler``;
+11. the multibody core (config #1, no TPU kernel on its path):
+   ``bench_suite.py``'s ``bench_mbs`` (a double pendulum and a
+   slider-crank, 6 bodies, 26 joint rows) built by the port's builder on
+   the card, 2,000 steps at h = 1e-3 with the direct solver through
+   ``simulate`` (one step captured in a CUDA graph and replayed) and
+   through an eager loop of the step, each timed by the host clock (ms per
+   step, real-time factor); the replay held to the eager loop (bit for
+   bit, or within 1e-6 relative), the card to the port's CPU run over 200
+   steps (x within 2e-4), a finite state and a joint violation below 1e-3
+   after 2,000 steps; one eager step's kernel launches from the profiler;
+   the slider-crank demo for 3,000 steps (the slider inside its stroke
+   ± 0.01, the crank at the motor's 2 rad/s); a double pendulum on the
+   float32 precision stack (filtered Baumgarte, Kahan position carry),
+   card against CPU over 200 steps and 1,000 steps on the card.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -168,6 +182,13 @@ from chrono_tpu_torch.ops.cuda.migrate import (
     dem_migrate, dem_migrate_plain, dem_migrate_rows, dem_migrate_rows_plain,
 )
 from chrono_tpu_torch.ops.nsc_pair import wall_geometry
+from chrono_tpu_torch.core.functions import FConst
+from chrono_tpu_torch.physics import SystemBuilder
+from chrono_tpu_torch.physics.joints import JOINT_TYPES, joint_violation
+from chrono_tpu_torch.physics.system import (
+    SolverSettings, init_stab_state, simulate,
+    step_euler_implicit_linearized,
+)
 from chrono_tpu_torch.solver.nsc_pencil import (
     NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
 )
@@ -2864,6 +2885,253 @@ def dem_full_width(card, n_target=1_000_000):
     return sym_row, row
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+MBS_H = 1e-3
+MBS_STEPS = 2000
+# the JAX package's direct-vs-Krylov bound (tests/test_mbs.py:246), and its
+# closed-joint bound (tests/test_mbs.py:54)
+MBS_X_ATOL = 2e-4
+MBS_VIOLATION = 1e-3
+# the graph replay against the eager loop when not bit for bit
+MBS_REPLAY_RTOL = 1e-6
+SLIDER_R, SLIDER_L, CRANK_SPEED = 0.5, 2.0, 2.0
+
+
+def mbs_bench_scene(device):
+    """``bench_suite.py:37-80`` ``bench_mbs`` (config #1): a double pendulum
+    and a slider-crank, through the port's builder."""
+    bld = SystemBuilder(device=device)
+    g = bld.add_ground()
+    p1 = bld.add_body(mass=1.0, pos=(0.5, 0, 0))
+    p2 = bld.add_body(mass=1.0, pos=(1.0, 0, 0))
+    bld.add_joint("revolute", g, p1, world_pos=(0, 0, 0),
+                  world_axis=(0, 1, 0))
+    bld.add_joint("revolute", p1, p2, world_pos=(0.5, 0, 0),
+                  world_axis=(0, 1, 0))
+    crank = bld.add_body(mass=2.0, inertia=(0.1, 0.1, 0.1), pos=(0, 2, 0))
+    rod = bld.add_body(mass=1.0, pos=(0.3, 2, 0))
+    slider = bld.add_body(mass=0.5, pos=(0.6, 2, 0))
+    bld.add_joint("revolute", g, crank, world_pos=(0, 2, 0),
+                  world_axis=(0, 1, 0))
+    bld.add_joint("spherical", crank, rod, world_pos=(0.15, 2, 0))
+    bld.add_joint("spherical", rod, slider, world_pos=(0.6, 2, 0))
+    bld.add_joint("prismatic", g, slider, world_pos=(0.6, 2, 0),
+                  world_axis=(1, 0, 0))
+    return bld.finalize()
+
+
+def mbs_slider_crank(device):
+    """``demos/demo_mbs_slider_crank.py:18-36``: the crank driven at
+    2 rad/s by a speed motor."""
+    r, l = SLIDER_R, SLIDER_L
+    bld = SystemBuilder(device=device)
+    ground = bld.add_ground()
+    crank = bld.add_body(mass=1.0, inertia=(0.1,) * 3, pos=(r / 2, 0, 0))
+    rod = bld.add_body(mass=1.0, inertia=(0.1,) * 3, pos=(r + l / 2, 0, 0))
+    slider = bld.add_body(mass=1.0, inertia=(0.1,) * 3, pos=(r + l, 0, 0))
+    bld.add_motor_rotation_speed(ground, crank, world_pos=(0, 0, 0),
+                                 world_axis=(0, 1, 0),
+                                 profile=FConst(c=torch.tensor(CRANK_SPEED)))
+    bld.add_joint("spherical", crank, rod, world_pos=(r, 0, 0))
+    bld.add_joint("universal", rod, slider, world_pos=(r + l, 0, 0),
+                  world_axis=(1, 0, 0))
+    bld.add_joint("prismatic", ground, slider, world_pos=(r + l, 0, 0),
+                  world_axis=(1, 0, 0))
+    return bld.finalize()
+
+
+def mbs_double_pendulum(device):
+    """``bench_mbs``'s double pendulum alone."""
+    bld = SystemBuilder(device=device)
+    g = bld.add_ground()
+    p1 = bld.add_body(mass=1.0, pos=(0.5, 0, 0))
+    p2 = bld.add_body(mass=1.0, pos=(1.0, 0, 0))
+    bld.add_joint("revolute", g, p1, world_pos=(0, 0, 0),
+                  world_axis=(0, 1, 0))
+    bld.add_joint("revolute", p1, p2, world_pos=(0.5, 0, 0),
+                  world_axis=(0, 1, 0))
+    return bld.finalize()
+
+
+def mbs_eager(model, state, n, settings, **carry):
+    """``n`` steps of ``step_euler_implicit_linearized`` in a Python loop,
+    ``t`` a float32 device scalar advanced by h as ``simulate`` advances
+    it; ``carry`` holds ``position_comp`` / ``stab_state`` when given."""
+    t = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
+    for _ in range(n):
+        out = step_euler_implicit_linearized(model, state, t, MBS_H,
+                                             settings, **carry)
+        state = out[0]
+        if "position_comp" in carry:
+            carry["position_comp"] = out[1]
+        if "stab_state" in carry:
+            carry["stab_state"] = out[-2]
+        t = t + MBS_H
+    return state
+
+
+def mbs_violation(model, state):
+    return max(float(joint_violation(k, d, state.x, state.q).abs().max())
+               for k, d in model.joints.items())
+
+
+def mbs_state_err(got, ref):
+    """max |got − ref| over x, q, v, w, and that over max |ref|."""
+    err = max(float((getattr(got, f) - getattr(ref, f)).abs().max())
+              for f in "xqvw")
+    scale = max(float(getattr(ref, f).abs().max()) for f in "xqvw")
+    return err, err / scale
+
+
+def mbs_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mbs_launches_per_step(model, state, settings):
+    """Kernels one eager step launches, from the profiler (the graph
+    replays the same step: these kernels and the state copies)."""
+    mbs_eager(model, state, 1, settings)
+    _, events = device_events(lambda: mbs_eager(model, state, 1, settings))
+    names = {}
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3,\
+        names
+
+
+def mbs_main_path(card):
+    """Config #1 on the card: ``bench_mbs`` through ``simulate`` (one
+    captured CUDA graph of the step, replayed) and through an eager loop of
+    the step, held to each other and to the port's own CPU run; the
+    slider-crank demo; a double pendulum on the float32 precision stack
+    (filtered Baumgarte + the Kahan position carry)."""
+    # N = D M⁻¹ Dᵀ must be full float32 (solver/direct.py)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    settings = SolverSettings(solver="direct")
+    model, state = mbs_bench_scene(DEV)
+    n_rows = sum(data.n * JOINT_TYPES[k][1]
+                 for k, data in model.joints.items())
+    print(f"bench_mbs: {model.n_bodies} bodies, {n_rows} joint rows, "
+          f"h = {MBS_H}, solver direct")
+
+    # one step: the graph replay against the eager step, from one state
+    one_g, _ = simulate(model, state, MBS_H, 1, settings, save_every=0)
+    one_e = mbs_eager(model, state, 1, settings)
+    err1, rel1 = mbs_state_err(one_g, one_e)
+    require(rel1 <= MBS_REPLAY_RTOL, f"one step, graph vs eager: {err1}")
+    print(f"bench_mbs, one step, graph replay vs eager step: max abs err "
+          f"{err1:.3e} ({'bit for bit' if err1 == 0 else f'{rel1:.3e} rel'})")
+
+    # warm-ups, then the timed runs: simulate() whole (warm-up step,
+    # capture, replays) and with no step, so the replays' share is the
+    # difference; the eager loop
+    simulate(model, state, MBS_H, 10, settings, save_every=0)
+    mbs_eager(model, state, 10, settings)
+    (_, _), t_setup = mbs_timed(lambda: simulate(model, state, MBS_H, 0,
+                                                 settings, save_every=0))
+    (graph_state, _), t_graph = mbs_timed(lambda: simulate(
+        model, state, MBS_H, MBS_STEPS, settings, save_every=0))
+    eager_state, t_eager = mbs_timed(lambda: mbs_eager(
+        model, state, MBS_STEPS, settings))
+    sim_s = MBS_STEPS * MBS_H
+    replay_ms = (t_graph - t_setup) / MBS_STEPS * 1e3
+    print(f"bench_mbs, {MBS_STEPS} steps, simulate (graph replay): "
+          f"{t_graph / MBS_STEPS * 1e3:.4f} ms/step, RTF "
+          f"{t_graph / sim_s:.4f} (the call: warm-up step and capture "
+          f"{t_setup * 1e3:.2f} ms, replays {replay_ms:.4f} ms/step) "
+          f"[{card}]")
+    print(f"bench_mbs, {MBS_STEPS} steps, eager loop: "
+          f"{t_eager / MBS_STEPS * 1e3:.4f} ms/step, RTF "
+          f"{t_eager / sim_s:.4f} [{card}]")
+    err, rel = mbs_state_err(graph_state, eager_state)
+    require(rel <= MBS_REPLAY_RTOL,
+            f"{MBS_STEPS} steps, graph vs eager: max abs err {err}")
+    print(f"bench_mbs, {MBS_STEPS} steps, graph replay vs eager loop: max "
+          f"abs err {err:.3e} "
+          f"({'bit for bit' if err == 0 else f'{rel:.3e} rel'})")
+    require(all(bool(torch.isfinite(getattr(graph_state, f)).all())
+                for f in "xqvw"), "bench_mbs: non-finite state")
+    viol = mbs_violation(model, graph_state)
+    require(viol < MBS_VIOLATION, f"bench_mbs: joint violation {viol}")
+    print(f"bench_mbs after {MBS_STEPS} steps: finite, joint violation "
+          f"{viol:.3e} (< {MBS_VIOLATION})")
+
+    # the card against the port's own CPU run (the double pendulum is
+    # chaotic: 200 steps)
+    cpu_model, cpu_state = mbs_bench_scene("cpu")
+    card_200, _ = simulate(model, state, MBS_H, 200, settings, save_every=0)
+    cpu_200, _ = simulate(cpu_model, cpu_state, MBS_H, 200, settings,
+                          save_every=0)
+    err = float((card_200.x.cpu() - cpu_200.x).abs().max())
+    require(err <= MBS_X_ATOL, f"bench_mbs, card vs CPU, 200 steps: {err}")
+    print(f"bench_mbs, 200 steps, card vs the port on the CPU: max |Δx| "
+          f"{err:.3e} (≤ {MBS_X_ATOL})")
+
+    n, busy, names = mbs_launches_per_step(model, state, settings)
+    top = ", ".join(f"{k[:40]} {v}" for k, v in sorted(
+        names.items(), key=lambda kv: -kv[1])[:6])
+    print(f"bench_mbs, one eager step under the profiler: {n} kernel "
+          f"launches, {busy:.4f} ms of device time ({top})")
+
+    # the slider-crank demo, 3,000 steps through simulate
+    sc_model, sc_state = mbs_slider_crank(DEV)
+    steps = 3000
+    (sc_final, (xs, qs)), t_sc = mbs_timed(lambda: simulate(
+        sc_model, sc_state, MBS_H, steps, settings))
+    sx = xs[:, 3, 0]
+    lo, hi = float(sx.min()), float(sx.max())
+    require(SLIDER_L - SLIDER_R - 0.01 <= lo and hi <= SLIDER_L + SLIDER_R
+            + 0.01, f"slider-crank: slider x in [{lo}, {hi}]")
+    # the crank turns about world y: its angle atan2(R02, R00) from its
+    # orientation, unwrapped step by step
+    w, x, y, z = qs[:, 1].unbind(-1)
+    angle = torch.atan2(2 * (x * z + w * y), 1 - 2 * (y * y + z * z))
+    turned = float(((torch.diff(angle) + np.pi).remainder(2 * np.pi)
+                    - np.pi).sum())
+    mean_speed = turned / ((steps - 1) * MBS_H)
+    w_end = float(sc_final.w[1, 1])
+    require(abs(mean_speed - CRANK_SPEED) < 0.01
+            and abs(w_end - CRANK_SPEED) < 0.01,
+            f"slider-crank: crank speed {mean_speed}, {w_end} at the end")
+    print(f"slider-crank, {steps} steps (simulate, {t_sc / steps * 1e3:.4f} "
+          f"ms/step): slider x in [{lo:.4f}, {hi:.4f}] (stroke "
+          f"[{SLIDER_L - SLIDER_R}, {SLIDER_L + SLIDER_R}] ± 0.01), crank "
+          f"{mean_speed:.5f} rad/s on average, {w_end:.5f} at the end "
+          f"(motor {CRANK_SPEED})")
+
+    # the float32 precision stack: filtered Baumgarte + Kahan carry
+    fp_settings = SolverSettings(solver="direct", stab_mode="filtered",
+                                 stab_deadband=1e-6)
+
+    def stack_run(dev, n):
+        m, st = mbs_double_pendulum(dev)
+        return m, mbs_eager(
+            m, st, n, fp_settings,
+            position_comp=(torch.zeros_like(st.x), torch.zeros_like(st.q)),
+            stab_state=init_stab_state(m, st, 0.0, MBS_H, fp_settings))
+
+    _, card_stack = stack_run(DEV, 200)
+    _, cpu_stack = stack_run("cpu", 200)
+    err = float((card_stack.x.cpu() - cpu_stack.x).abs().max())
+    require(err <= MBS_X_ATOL, f"filtered + Kahan, card vs CPU: {err}")
+    steps = 1000
+    (fp_model, fp_state), t_fp = mbs_timed(lambda: stack_run(DEV, steps))
+    viol = mbs_violation(fp_model, fp_state)
+    require(all(bool(torch.isfinite(getattr(fp_state, f)).all())
+                for f in "xqvw") and viol < MBS_VIOLATION,
+            f"filtered + Kahan: joint violation {viol}")
+    print(f"double pendulum, filtered Baumgarte + Kahan carry: 200 steps "
+          f"card vs CPU max |Δx| {err:.3e}; {steps} eager steps "
+          f"({t_fp / steps * 1e3:.4f} ms/step): finite, joint violation "
+          f"{viol:.3e}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2991,6 +3259,11 @@ def main():
                     "replaces": "; ".join(DEM_FORCES_REPLACES), **row,
                     "library_ms": None})
     print(f"phase 10 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 11: the multibody core (config #1)
+    t0 = time.perf_counter()
+    mbs_main_path(card)
+    print(f"phase 11 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

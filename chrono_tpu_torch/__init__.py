@@ -18,5 +18,13 @@ make_crm_terrain_state``, ``fsi.sph.crm_pencil.make_crm_advance_pencil``),
 with the two sweeps and the whole-outer step of ``ops.cuda.crm_substep``;
 the NSC many-body stepper of the bladed mixer (``solver.nsc_pencil.
 make_nsc_pencil_advance``), with contact detection ``ops.cuda.nsc_detect``
-and the two APGD sweeps of ``ops.cuda.nsc_sweep``.
+and the two APGD sweeps of ``ops.cuda.nsc_sweep``; the multibody core
+(``core`` quaternions, frames and motion functions; ``physics`` bodies, the
+17 joint kinds, couplers, motors, force elements, ``SystemBuilder``,
+``step_euler_implicit_linearized`` and ``simulate``; ``solver.descriptor``
+and the compensated dense Schur solve ``solver.direct``), which has no TPU
+kernel: plain tensor code whose step ``simulate`` captures in a CUDA graph
+on the card.  Its builder puts the model on the card unless the caller
+passes ``device="cpu"``; only the direct solver is ported, and contact rows
+and shafts are refused.
 """

@@ -2,11 +2,12 @@
 
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``DEMBoundaries``
 (planes, cylinders, spheres, cones, wheels) / ``GridSpec`` / ``SPHParams`` /
-``SPHState`` / ``CRMParams`` / ``CRMState`` / ``NSCPencilParams`` as pytrees
-of arrays and static fields.  A caller that holds them flattens each into a
-mapping of field name → numpy array or Python scalar (nested mappings for
-the two materials and the wall kinds); these functions turn such mappings
-into the port's objects.  The NSC multiplier maps move γ
+``SPHState`` / ``CRMParams`` / ``CRMState`` / ``NSCPencilParams`` and the
+multibody ``Model`` / ``BodyState`` as pytrees of arrays and static fields.
+A caller that holds them flattens each into a mapping of field name → numpy
+array or Python scalar (nested mappings for the two materials, the wall
+kinds, and a model's joints, motors and force elements); these functions
+turn such mappings into the port's objects.  The NSC multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
 """
@@ -20,13 +21,20 @@ import numpy as np
 import torch
 
 from chrono_tpu_torch.collision.cell_list import GridSpec
+from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
+from chrono_tpu_torch.physics import force_elements as fe
+from chrono_tpu_torch.physics.body import BodyProps, BodyState
+from chrono_tpu_torch.physics.joints import JointData
+from chrono_tpu_torch.physics.motors import MotorData
+from chrono_tpu_torch.physics.system import Model
 from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
+from chrono_tpu_torch.utils.tree import is_static
 
 
 def _scalar(x) -> float:
@@ -154,6 +162,90 @@ def nsc_params_from_numpy(leaves: Mapping[str, Any]) -> NSCPencilParams:
         **{k: bool(leaves[k]) for k in ("track_residual",
                                         "track_wall_reactions")
            if k in leaves})
+
+
+def motion_function_from_numpy(leaves: Mapping[str, Any], *, device=None
+                               ) -> F.MotionFunction:
+    """A ``core.functions`` MotionFunction from ``{"class": name, field:
+    value, …}``: arrays become float32 tensors on ``device``, a nested
+    function is such a mapping, ``FSequence.fns`` a list of them, and the
+    static fields (``FConstAcc.aw1``/``aw2``, ``FIntegral.samples``) keep
+    their Python type."""
+    cls = F.FUNCTIONS[leaves["class"]]
+    kw = {}
+    for f in fields(cls):
+        if f.name not in leaves:
+            continue
+        v = leaves[f.name]
+        if is_static(f):
+            kw[f.name] = type(f.default)(np.asarray(v))
+        elif isinstance(v, Mapping):
+            kw[f.name] = motion_function_from_numpy(v, device=device)
+        elif isinstance(v, (list, tuple)):
+            kw[f.name] = tuple(motion_function_from_numpy(x, device=device)
+                               for x in v)
+        else:
+            kw[f.name] = torch.as_tensor(np.array(v, np.float32),
+                                         device=device)
+    return cls(**kw)
+
+
+def _carrier(cls, leaves: Mapping[str, Any], device):
+    """A dataclass of tensors from its numpy leaves: int32 body indices,
+    float32 otherwise (the builder's types)."""
+    kw = {}
+    for f in fields(cls):
+        v = leaves[f.name]
+        if f.name == "profile":
+            kw[f.name] = motion_function_from_numpy(v, device=device)
+        else:
+            a = np.asarray(v)
+            kw[f.name] = torch.as_tensor(
+                a.astype(np.int32 if a.dtype.kind in "iu" else np.float32),
+                device=device)
+    return cls(**kw)
+
+
+def body_state_from_numpy(leaves: Mapping[str, Any], *, device
+                          ) -> BodyState:
+    """``BodyState`` on ``device`` from the JAX ``BodyState`` fields
+    (x, q, v, w)."""
+    return _carrier(BodyState, leaves, device)
+
+
+def mbs_model_from_numpy(leaves: Mapping[str, Any], *, device) -> Model:
+    """The multibody ``Model`` on ``device`` from the JAX ``Model``'s
+    leaves: ``props`` (inv_mass, inertia, inv_inertia), ``gravity``,
+    ``joints`` / ``couplers`` / ``motors`` / ``load_motors`` as mappings
+    kind → that kind's fields (a motor's ``profile`` as for
+    :func:`motion_function_from_numpy`), ``tsda`` / ``rsda`` / ``bushings``
+    as their fields or None.  Shafts are not ported: a model with shaft
+    constraints or shaft elements is refused."""
+    if leaves.get("shaft_constraints") or \
+            leaves.get("shaft_elements") is not None:
+        raise NotImplementedError(
+            "shafts are not ported yet (physics/shafts.py comes in a later "
+            "slice)")
+
+    def kinds(key, cls):
+        return {k: _carrier(cls, v, device)
+                for k, v in (leaves.get(key) or {}).items()}
+
+    def optional(key, cls):
+        v = leaves.get(key)
+        return None if v is None else _carrier(cls, v, device)
+
+    return Model(
+        props=_carrier(BodyProps, leaves["props"], device),
+        gravity=torch.as_tensor(np.array(leaves["gravity"], np.float32),
+                                device=device),
+        joints=kinds("joints", JointData), motors=kinds("motors", MotorData),
+        load_motors=kinds("load_motors", MotorData),
+        tsda=optional("tsda", fe.TSDAData),
+        rsda=optional("rsda", fe.RSDAData),
+        shaft_constraints={}, shaft_elements=None,
+        couplers=kinds("couplers", JointData),
+        bushings=optional("bushings", fe.BushingData))
 
 
 def _np(x) -> np.ndarray:

@@ -1,0 +1,11 @@
+"""The multibody core: bodies, joints, motors, force elements, the system
+model and its stepper, and the scene builder."""
+
+from chrono_tpu_torch.physics.body import (
+    BodyProps, BodyState, kinetic_energy, make_body_state,
+)
+from chrono_tpu_torch.physics.builder import SystemBuilder
+from chrono_tpu_torch.physics.system import (
+    Model, SolverSettings, StepInfo, make_step_fn, simulate,
+    step_euler_implicit_linearized,
+)

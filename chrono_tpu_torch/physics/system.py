@@ -1,0 +1,412 @@
+"""The multibody system model and its time stepper.
+
+Counterpart of ``chrono_tpu/physics/system.py``: the scene is a ``Model`` of
+batched tensors, and one step — force accumulation, constraint lowering
+(autodiff), the direct Schur solve, state integration — is plain tensor
+code with no host sync and no branch on data.  The JAX package compiles
+``simulate``'s whole ``lax.scan`` into one program; on a CUDA device this
+port captures one step into a ``torch.cuda.CUDAGraph`` and replays it, and
+on the CPU it runs the same step eagerly.
+
+What is not ported yet refuses loudly: only the ``"direct"`` solver, no
+contact rows, no shafts (``physics/shafts.py`` comes in a later slice).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from chrono_tpu_torch.core import quaternion as Q
+from chrono_tpu_torch.physics import force_elements as fe
+from chrono_tpu_torch.physics.body import (
+    BodyProps, BodyState, gyroscopic_torque, integrate_positions,
+    integrate_positions_compensated,
+)
+from chrono_tpu_torch.physics.constraints import ConstraintRows, concat_rows
+from chrono_tpu_torch.physics.joints import coupler_rows, joint_rows
+from chrono_tpu_torch.physics.motors import motor_loads, motor_rows
+from chrono_tpu_torch.solver import descriptor as desc
+from chrono_tpu_torch.solver.direct import solve_dense_schur
+from chrono_tpu_torch.utils.segment import scatter_add
+from chrono_tpu_torch.utils.tree import tensor_dataclass
+
+
+@tensor_dataclass
+class SolverSettings:
+    """Solver configuration (the JAX package's fields and defaults)."""
+
+    solver: str = "apgd"           # apgd | bb | pjacobi | direct (ported)
+    max_iter: int = 100
+    tol: float = 1e-6
+    stab_factor: float = 1.0       # Baumgarte C/h scaling
+    # soft-threshold on joint violations before stabilisation: set to the
+    # fp32 position-roundoff floor (~1e-6 · pose scale) for long fp32 runs
+    stab_deadband: float = 0.0
+    # "baumgarte": rhs += -stab·C/h (velocity-level, the reference default).
+    # "project": rhs stab term dropped; positions projected back onto the
+    # constraint manifold AFTER each step (M⁻¹-weighted least squares).
+    # "filtered": Baumgarte on a bias-corrected EMA of C carried across
+    # steps in ``stab_state``: the smooth violation passes, the eps32·|x|
+    # evaluation noise is averaged out; corrections stay velocity-level.
+    stab_mode: str = "baumgarte"
+    # "filtered" steady-state EMA gain (reached once 1/k < alpha_min)
+    stab_alpha_min: float = 1.0 / 2048.0
+    # contact −C/h clamp (read by the contact solvers, not ported yet)
+    max_recovery_speed: float = 0.6
+    # per-body row-valence bound of the VI solvers' Dᵀγ gather (not ported)
+    valence_bound: int = 96
+
+
+@tensor_dataclass
+class Model:
+    """Immutable scene description: bodies + joints + motors + force
+    elements."""
+
+    props: BodyProps
+    gravity: Tensor                     # (3,)
+    joints: dict                        # {kind: JointData}
+    motors: dict                        # {kind: MotorData} constraint motors
+    load_motors: dict                   # {kind: MotorData} torque/force motors
+    tsda: Optional[fe.TSDAData]
+    rsda: Optional[fe.RSDAData]
+    shaft_constraints: dict = None      # {kind: Shaft*Data} (not ported)
+    shaft_elements: object = None       # ShaftTorqueElements (not ported)
+    couplers: dict = None               # {kind: JointData} velocity-level rows
+    bushings: object = None             # fe.BushingData compliant mounts
+
+    @property
+    def n_bodies(self) -> int:
+        return self.props.inv_mass.shape[0]
+
+
+class StepInfo(NamedTuple):
+    """Per-step diagnostics."""
+
+    iterations: Tensor
+    residual: Tensor
+    joint_reactions: Tensor   # (M,) constraint impulses / h = forces
+    n_rows: int
+
+
+def _refuse_shafts(model: Model):
+    if model.shaft_constraints or model.shaft_elements is not None:
+        raise NotImplementedError(
+            "shafts are not ported yet (physics/shafts.py comes in a later "
+            "slice)")
+
+
+def applied_forces(model: Model, state: BodyState, t, f_ext=None,
+                   tau_ext=None):
+    """Accumulate all smooth forces → (f_world (N,3), tau_local (N,3)):
+    gravity, gyroscopic torque, spring-dampers, bushings, motor loads and
+    optional user external loads."""
+    _refuse_shafts(model)
+    inv_m = model.props.inv_mass
+    mass = torch.where(inv_m > 0, 1.0 / torch.clamp_min(inv_m, 1e-30),
+                       torch.zeros_like(inv_m))
+    f = mass[:, None] * model.gravity[None, :]
+    tau = gyroscopic_torque(model.props, state)
+    if f_ext is not None:
+        f = f + f_ext
+    if tau_ext is not None:
+        tau = tau + tau_ext
+    if model.tsda is not None:
+        f, tau = fe.accumulate_tsda(model.tsda, state, f, tau)
+    if model.rsda is not None:
+        f, tau = fe.accumulate_rsda(model.rsda, state, f, tau)
+    if model.bushings is not None:
+        f, tau = fe.accumulate_bushing(model.bushings, state, f, tau)
+    for kind, data in model.load_motors.items():
+        fa, ta, fb, tb = motor_loads(kind, data, state.x, state.q, t)
+        f = scatter_add(scatter_add(f, data.body_a, fa), data.body_b, fb)
+        tau = scatter_add(
+            scatter_add(tau, data.body_a,
+                        Q.qrotate_inv(state.q[data.body_a], ta)),
+            data.body_b, Q.qrotate_inv(state.q[data.body_b], tb))
+    return f, tau
+
+
+def _concat(parts, state: BodyState) -> ConstraintRows:
+    return concat_rows(parts, dtype=state.x.dtype, device=state.x.device)
+
+
+def bilateral_rows(model: Model, state: BodyState, t, h,
+                   settings: SolverSettings) -> ConstraintRows:
+    """Lower all joints, constraint motors and couplers to stabilised rows."""
+    _refuse_shafts(model)
+    stab = (0.0 if settings.stab_mode in ("project", "filtered")
+            else settings.stab_factor)
+    parts = [
+        joint_rows(kind, data, state.x, state.q, h, stab,
+                   settings.stab_deadband)
+        for kind, data in model.joints.items()
+    ]
+    parts += [
+        motor_rows(kind, data, state.x, state.q, t, h, stab)
+        for kind, data in model.motors.items()
+    ]
+    if model.couplers:
+        parts += [coupler_rows(kind, data, state.x, state.q)
+                  for kind, data in model.couplers.items()]
+    return _concat(parts, state)
+
+
+def _position_rows(model: Model, state: BodyState, t) -> ConstraintRows:
+    """Joints then ALL motors as pure position-error rows (rhs = −C)."""
+    parts = [joint_rows(kind, data, state.x, state.q, 1.0, 1.0)
+             for kind, data in model.joints.items()]
+    parts += [
+        motor_rows(kind, data, state.x, state.q, t, 1.0, 1.0, vel_scale=0.0)
+        for kind, data in model.motors.items()
+    ]
+    return _concat(parts, state)
+
+
+def bilateral_C(model: Model, state: BodyState, t, m_total: int) -> Tensor:
+    """Position-level violation vector aligned with ``bilateral_rows`` order.
+
+    joints → C; angle/pos motors → tracking error; speed motors, shafts and
+    couplers (velocity-level rows, no position gap) → 0, padded at the tail
+    to ``m_total``.
+    """
+    C = -_position_rows(model, state, t).rhs
+    return torch.cat([C, C.new_zeros(m_total - C.shape[0])])
+
+
+def init_stab_state(model: Model, state: BodyState, t, h,
+                    settings: SolverSettings):
+    """Zero-initialised carry for ``stab_mode='filtered'``: (C_ema, k)."""
+    m = bilateral_rows(model, state, t, h, settings).m
+    return (state.x.new_zeros((m,)),
+            torch.zeros((), dtype=torch.int32, device=state.x.device))
+
+
+def _solve(rows: ConstraintRows, model: Model, v_free, w_free,
+           settings: SolverSettings, n_contacts=0, D=None):
+    """The configured constraint solver: the dense direct Schur solve.
+
+    The JAX package also offers APGD, BB, ADMM, projected Jacobi and Krylov
+    solvers, and falls back to APGD for a direct solve with contacts; this
+    port has no VI solver yet, so those requests raise.
+    """
+    m = rows.m
+    if m == 0:
+        return (v_free.new_zeros((0,)),
+                torch.zeros((), dtype=torch.int32, device=v_free.device),
+                v_free.new_zeros(()))
+    if settings.solver != "direct":
+        raise ValueError(
+            f"solver {settings.solver!r} is not ported: only 'direct' is "
+            "(the VI and Krylov solvers come in a later slice)")
+    if n_contacts > 0:
+        raise ValueError(
+            "contact rows are not ported: the direct solver takes bilateral "
+            "rows only, and the APGD fallback comes in a later slice")
+    gamma = solve_dense_schur(rows, model.props, v_free, w_free, D=D)
+    return (gamma, torch.ones((), dtype=torch.int32, device=v_free.device),
+            v_free.new_zeros(()))
+
+
+def step_euler_implicit_linearized(
+    model: Model,
+    state: BodyState,
+    t,
+    h: float,
+    settings: SolverSettings = SolverSettings(),
+    f_ext=None,
+    tau_ext=None,
+    extra_rows: Optional[ConstraintRows] = None,
+    n_contacts: int = 0,
+    contact_mu: Optional[Tensor] = None,
+    gamma_warm: Optional[Tensor] = None,
+    position_comp=None,
+    stab_state=None,
+    n_rolling: int = 0,
+    mu_roll: float = 0.0,
+    mu_spin: float = 0.0,
+):
+    """One DVI step (Anitescu/Tasora one-Newton-iteration implicit Euler):
+    forces at the step start, one solve for end-of-step velocities with
+    stabilised constraints, then the symplectic position update.
+
+    ``extra_rows`` appends rows after the bilateral ones; ``n_contacts``,
+    ``n_rolling``, ``contact_mu`` and ``gamma_warm`` configure the contact
+    cone solve, which is not ported (``n_contacts > 0`` or ``n_rolling > 0``
+    raises).
+
+    Returns ``(new_state, info)``, with ``(cx, cq)`` after the state when
+    ``position_comp`` is given and ``stab_state`` before ``info`` when it is.
+    """
+    if n_rolling > 0:
+        raise ValueError("rolling-friction contact rows are not ported")
+    f, tau = applied_forces(model, state, t, f_ext, tau_ext)
+    v_free = state.v + h * model.props.inv_mass[:, None] * f
+    w_free = state.w + h * model.props.inv_inertia * tau
+
+    rows = bilateral_rows(model, state, t, h, settings)
+    if settings.stab_mode == "filtered" and stab_state is not None:
+        # bias-corrected EMA of the violation: running mean until 1/k hits
+        # alpha_min, then exponential with that gain.  THIS step's rhs uses
+        # the updated mean (step 1 ≡ plain Baumgarte).
+        C_ema, k = stab_state
+        k = k + 1
+        alpha = torch.clamp_min(1.0 / k.to(C_ema.dtype),
+                                settings.stab_alpha_min)
+        C_now = bilateral_C(model, state, t, rows.m)
+        C_ema = C_ema + alpha * (C_now - C_ema)
+        stab_state = (C_ema, k)
+        rows = rows.replace(
+            rhs=rows.rhs - (settings.stab_factor / h) * C_ema)
+    if extra_rows is not None:
+        rows = _concat([rows, extra_rows], state)
+
+    D = desc.dense_D(rows, model.n_bodies) if rows.m > 0 else None
+    gamma, iters, res = _solve(rows, model, v_free, w_free, settings,
+                               n_contacts=n_contacts, D=D)
+    if rows.m > 0:
+        # Dᵀγ from the dense D the solve built: a fixed sum order, no
+        # atomics (the JAX package scatters the packed rows)
+        v_new, w_new = desc.velocity_update_dense(D, model.props, gamma,
+                                                  v_free, w_free)
+    else:
+        v_new, w_new = v_free, w_free
+
+    info = StepInfo(iterations=iters, residual=res,
+                    joint_reactions=gamma / h, n_rows=rows.m)
+    if position_comp is not None:
+        # Kahan-compensated long-fp32-run variant: carry = (cx, cq)
+        cx, cq = position_comp
+        new_state, cx, cq = integrate_positions_compensated(
+            state.replace(v=v_new, w=w_new), h, cx, cq)
+        if settings.stab_mode == "project":
+            new_state, cx = project_positions(model, new_state, t + h,
+                                              comp_x=cx)
+        if stab_state is not None:
+            return new_state, (cx, cq), stab_state, info
+        return new_state, (cx, cq), info
+    new_state = integrate_positions(state.replace(v=v_new, w=w_new), h)
+    if settings.stab_mode == "project":
+        new_state, _ = project_positions(model, new_state, t + h)
+    if stab_state is not None:
+        return new_state, stab_state, info
+    return new_state, info
+
+
+def project_positions(model: Model, state: BodyState, t, n_iter: int = 1,
+                      comp_x=None, C_offset=None):
+    """Project positions back onto the constraint manifold (M⁻¹-weighted).
+
+    Solves ``(D M⁻¹ Dᵀ) λ = −(C − C_offset)`` on the position-level rows
+    (joints + motor tracking errors) and applies ``Δx = M⁻¹ Dᵀ λ`` to poses.
+    ``C_offset`` must align with the ``bilateral_C`` layout (joints then
+    ALL motors).  ``comp_x``: Kahan carry for x.  Returns (state, comp_x).
+    """
+    if _position_rows(model, state, t).m == 0:
+        return state, comp_x
+    for _ in range(n_iter):
+        rows = _position_rows(model, state, t)
+        if C_offset is not None:
+            # rhs = −C + C_ema = −(C − C_ema): project the residual only
+            rows = rows.replace(rhs=rows.rhs + C_offset[:rows.m])
+        zero_v = torch.zeros_like(state.v)
+        zero_w = torch.zeros_like(state.w)
+        D = desc.dense_D(rows, model.n_bodies)
+        lam = solve_dense_schur(rows, model.props, zero_v, zero_w, D=D)
+        dv, dw = desc.velocity_update_dense(D, model.props, lam, zero_v,
+                                            zero_w)
+        if comp_x is None:
+            x_new = state.x + dv
+        else:
+            y = dv - comp_x
+            x_new = state.x + y
+            comp_x = (x_new - state.x) - y
+        proj = integrate_positions(state.replace(x=x_new, v=zero_v, w=dw),
+                                   1.0)
+        state = state.replace(x=x_new, q=proj.q)
+    return state, comp_x
+
+
+def make_step_fn(model: Model, h: float,
+                 settings: SolverSettings = SolverSettings()):
+    """A ``(state, t) -> (state, info)`` step closure."""
+
+    def step(state: BodyState, t):
+        return step_euler_implicit_linearized(model, state, t, h, settings)
+
+    return step
+
+
+def simulate(model: Model, state: BodyState, h: float, n_steps: int,
+             settings: SolverSettings = SolverSettings(), t0=0.0,
+             save_every: int = 1):
+    """Run ``n_steps``; returns the final state and the trajectory
+    ``(xs, qs)`` of every ``save_every``-th step (the states after steps 1,
+    1 + save_every, …), or ``(state, None)`` when ``save_every == 0``.
+
+    ``t`` is a float32 device scalar advanced by ``h`` each step, as the JAX
+    package's scan carries it.  On a CUDA device one step is warmed up,
+    captured into a ``torch.cuda.CUDAGraph`` and replayed ``n_steps`` times:
+    the graph advances the state and ``t`` in place and, when
+    ``save_every > 0``, copies x and q into preallocated trajectory buffers.
+    On the CPU the same step runs eagerly.
+    """
+    t = torch.full((), t0, dtype=state.x.dtype, device=state.x.device)
+    if state.x.is_cuda:
+        return _simulate_graph(model, state, h, n_steps, settings, t,
+                               save_every)
+    xs, qs = [], []
+    for k in range(n_steps):
+        state, _ = step_euler_implicit_linearized(model, state, t, h,
+                                                  settings)
+        t = t + h
+        if save_every and k % save_every == 0:
+            xs.append(state.x)
+            qs.append(state.q)
+    if not save_every:
+        return state, None
+    return state, (torch.stack(xs), torch.stack(qs))
+
+
+_STATE_FIELDS = ("x", "q", "v", "w")
+
+
+def _simulate_graph(model, state, h, n_steps, settings, t, save_every):
+    cur = BodyState(**{f: getattr(state, f).clone() for f in _STATE_FIELDS})
+    n_saved = len(range(0, n_steps, save_every)) if save_every else 0
+    if save_every:
+        # one spare slot takes the writes of the steps that are not saved
+        xs = cur.x.new_empty((n_saved + 1,) + cur.x.shape)
+        qs = cur.q.new_empty((n_saved + 1,) + cur.q.shape)
+        k = torch.zeros((), dtype=torch.int64, device=cur.x.device)
+
+    def one_step():
+        new, _ = step_euler_implicit_linearized(model, cur, t, h, settings)
+        if save_every:
+            slot = torch.where(k % save_every == 0, k // save_every,
+                               torch.full_like(k, n_saved)).reshape(1)
+            xs.index_copy_(0, slot, new.x[None])
+            qs.index_copy_(0, slot, new.q[None])
+            k.add_(1)
+        for f in _STATE_FIELDS:
+            getattr(cur, f).copy_(getattr(new, f))
+        t.add_(h)
+
+    # warm-up: one step on a side stream (library handles, workspaces); its
+    # result is dropped
+    side = torch.cuda.Stream(device=cur.x.device)
+    side.wait_stream(torch.cuda.current_stream(cur.x.device))
+    with torch.cuda.stream(side):
+        step_euler_implicit_linearized(model, cur, t, h, settings)
+    torch.cuda.current_stream(cur.x.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        one_step()
+    for _ in range(n_steps):
+        graph.replay()
+    final = BodyState(**{f: getattr(cur, f).clone() for f in _STATE_FIELDS})
+    if not save_every:
+        return final, None
+    return final, (xs[:n_saved].clone(), qs[:n_saved].clone())

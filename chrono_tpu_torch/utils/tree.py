@@ -1,0 +1,31 @@
+"""Plain dataclasses of tensors (the role of ``chrono_tpu.utils.pytree``).
+
+The JAX package registers its data carriers as pytrees so that ``jit``,
+``vmap`` and ``lax.scan`` can walk them.  PyTorch runs eagerly and needs no
+registry: a carrier is a frozen dataclass with a ``replace`` method.
+Fields marked with :func:`static_field` are configuration (floats, ints),
+not tensors: stacking motor profiles and converting from numpy keep them
+as they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+def static_field(**kwargs):
+    """A dataclass field that holds configuration, not a tensor."""
+    metadata = dict(kwargs.pop("metadata", {}) or {})
+    metadata["static"] = True
+    return dataclasses.field(metadata=metadata, **kwargs)
+
+
+def is_static(field: dataclasses.Field) -> bool:
+    return bool(field.metadata.get("static", False))
+
+
+def tensor_dataclass(cls):
+    """Decorator: a frozen dataclass with ``replace(**changes)``."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return cls

@@ -53,10 +53,15 @@ def test_guard_catches_hidden_imports():
 def test_guard_walks_the_whole_port():
     assert "chrono_tpu_torch/ops/cuda/sph_substep.py" in FILES
     assert "chrono_tpu_torch/fsi/sph/pencil.py" in FILES
+    for module in ("core/quaternion", "core/functions", "core/dual",
+                   "physics/system", "physics/builder", "solver/direct",
+                   "solver/descriptor"):
+        assert f"chrono_tpu_torch/{module}.py" in FILES
     assert len(FILES) >= 20
 
 
-def test_turn_probe_imports_no_jax():
-    """``kernel_turns.py`` runs on the card's machine beside
-    ``chip_smoke.py``: it too imports nothing of JAX."""
-    assert banned_imports((ROOT / "kernel_turns.py").read_text()) == []
+@pytest.mark.parametrize("script", ["kernel_turns.py", "mbs_host_cost.py"])
+def test_turn_probe_imports_no_jax(script):
+    """The port's measuring scripts beside ``chip_smoke.py`` import nothing
+    of JAX either."""
+    assert banned_imports((ROOT / script).read_text()) == []
