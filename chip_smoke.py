@@ -121,7 +121,24 @@ once) and then runs:
    the slider-crank demo for 3,000 steps (the slider inside its stroke
    ± 0.01, the crank at the motor's 2 rad/s); a double pendulum on the
    float32 precision stack (filtered Baumgarte, Kahan position carry),
-   card against CPU over 200 steps and 1,000 steps on the card.
+   card against CPU over 200 steps and 1,000 steps on the card;
+12. rigid-body contact (config #2 as ``bench_suite.py``'s ``bench_mixer``
+   builds it, no TPU kernel on its path): 10,000 spheres of r = 3 cm and a
+   20 kg stirrer on a speed motor in a box of wall boxes, ``nsc_step`` with
+   APGD (50 iterations, the warm start carried as the bench carries it),
+   150 settling and 50 timed steps (DVI iterations/s, ms a step, RTF,
+   contacts and iterations a step, host reads a step, how often the JAX
+   package's capped gather plan would have overflowed), checked at every
+   step (finite, ``count <= max_contacts``, the fullest cell within
+   ``max_per_cell``, every sphere inside the box, the stirrer at 2 rad/s
+   within 1 %), two runs of 20 steps from one state equal bit for bit, one
+   profiled step (kernels, device time); the scene cut to 512 spheres, card
+   against the port on the CPU in float64 and float32; ``nsc_step`` on
+   ``tests/test_contact.py``'s ``drop_scene`` with every VI solver, the
+   direct solver's APGD fallback and rolling friction, card against CPU;
+   ``bench_mbs`` through ``simulate`` with CG, MINRES and GMRES (an eager
+   loop: their loop tests are host reads), joint violation below 1e-3;
+   ``smc_step`` on a stack of spheres, card against CPU.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -182,13 +199,20 @@ from chrono_tpu_torch.ops.cuda.migrate import (
     dem_migrate, dem_migrate_plain, dem_migrate_rows, dem_migrate_rows_plain,
 )
 from chrono_tpu_torch.ops.nsc_pair import wall_geometry
+from chrono_tpu_torch.collision import (
+    BoxShapes, CollisionModel, SphereShapes, nsc_step,
+)
+from chrono_tpu_torch.collision.cell_list import cell_occupancy_max
 from chrono_tpu_torch.core.functions import FConst
 from chrono_tpu_torch.physics import SystemBuilder
+from chrono_tpu_torch.physics.body import BodyState
+from chrono_tpu_torch.physics.smc import SMCParams, smc_step
 from chrono_tpu_torch.physics.joints import JOINT_TYPES, joint_violation
 from chrono_tpu_torch.physics.system import (
     SolverSettings, init_stab_state, simulate,
     step_euler_implicit_linearized,
 )
+from chrono_tpu_torch.solver import vi as tvi
 from chrono_tpu_torch.solver.nsc_pencil import (
     NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
 )
@@ -3132,6 +3156,471 @@ def mbs_main_path(card):
           f"{viol:.3e}")
 
 
+
+# ---------------------------------------------------------------- phase 12
+
+
+MIXER_H = 2e-3
+MIXER_R = 0.03
+MIXER_SPEED = 2.0
+# the JAX package's valence bound for the mixer (bench_suite.py:150-154)
+MIXER_VALENCE = 32
+# card against the port on the CPU, 5 steps of the 512-sphere mixer: the
+# North star's state tolerances (positions rtol 1e-4 / atol 1e-5, velocities
+# rtol 1e-3 / atol 1e-4); APGD's iteration counts within 1
+MIXER_X_TOL = (1e-4, 1e-5)
+MIXER_V_TOL = (1e-3, 1e-4)
+
+
+def general_mixer_scene(n_target, device, dtype=torch.float32):
+    """``bench_suite.py:83-199`` ``bench_mixer`` (config #2 as the
+    reference's ``btest_CH_mixerNSC``): spheres of r = 3 cm, 0.2 kg, μ 0.4
+    on a jittered grid (seed 2) in a box of five wall boxes on the ground,
+    and a paddle box on a 20 kg stirrer driven at 2 rad/s by a speed motor;
+    cells of 2.2·2r, 16 a cell, 12 contacts a sphere; APGD, 50 iterations,
+    tol 1e-4, stab 0.2, recovery 0.5 m/s.  Built by the port's builder.
+    Returns ``(model, coll, state, settings, stirrer, box)``."""
+    radius = MIXER_R
+    spacing = 2.2 * radius
+    box = 0.08 + spacing * int(np.ceil(n_target ** (1 / 3)) + 1)
+    bld = SystemBuilder(dtype=dtype, device=device)
+    ground = bld.add_ground()
+    pts = grid_sample_box((0.07, 0.07, 0.07),
+                          (box - 0.07, box - 0.07, 4 * box),
+                          spacing, jitter=0.05, seed=2)[:n_target]
+    first = None
+    for pt in pts:
+        b = bld.add_body(mass=0.2, inertia=(2e-4,) * 3, pos=pt)
+        first = b if first is None else first
+    centre = (box / 2, box / 2, 1.5 * radius)
+    stirrer = bld.add_body(mass=20.0, inertia=(0.5, 0.5, 0.5), pos=centre)
+    bld.add_motor_rotation_speed(ground, stirrer, centre, (0, 0, 1),
+                                 FConst(c=torch.tensor(MIXER_SPEED)))
+    model, state = bld.finalize()
+    n = len(pts)
+    dev = state.x.device
+
+    def t(a, dtype=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    spheres = SphereShapes(
+        body=torch.arange(first, first + n, dtype=torch.int32, device=dev),
+        offset=t(np.zeros((n, 3))), radius=t(np.full(n, radius)),
+        mu=t(np.full(n, 0.4)))
+    t_w, half = 0.05, box / 2
+    walls = [
+        ((half, half, -t_w / 2), (half, half, t_w / 2)),            # floor
+        ((-t_w / 2, half, 2 * box), (t_w / 2, half + t_w, 2 * box)),
+        ((box + t_w / 2, half, 2 * box), (t_w / 2, half + t_w, 2 * box)),
+        ((half, -t_w / 2, 2 * box), (half + t_w, t_w / 2, 2 * box)),
+        ((half, box + t_w / 2, 2 * box), (half + t_w, t_w / 2, 2 * box)),
+    ]
+    boxes = BoxShapes(
+        body=t([0] * 5 + [stirrer], torch.int32),
+        pos=t([w[0] for w in walls] + [(0.3 * half, 0.0, 0.0)]),
+        rot=t(np.tile([1.0, 0, 0, 0], (6, 1))),
+        half=t([w[1] for w in walls] + [(0.3 * half, 0.02, 2 * radius)]),
+        mu=t(np.full(6, 0.4)))
+    cell = 2.2 * 2 * radius
+    grid = GridSpec(origin=(-t_w, -t_w, -t_w), cell_size=cell,
+                    dims=(int(np.ceil((box + 2 * t_w) / cell)),) * 2
+                    + (int(np.ceil(5 * box / cell)),))
+    coll = CollisionModel(spheres=spheres, boxes=boxes, grid=grid,
+                          max_per_cell=16, max_contacts=int(12 * n))
+    settings = SolverSettings(solver="apgd", max_iter=50, tol=1e-4,
+                              stab_factor=0.2, max_recovery_speed=0.5,
+                              valence_bound=MIXER_VALENCE)
+    return model, coll, state, settings, stirrer, box
+
+
+def mixer_stats(model, coll, state, contacts, info, stirrer, box):
+    """One step's figures as device tensors (read once at the end): the
+    true contact count, APGD's iterations, the fullest cell, the most rows
+    on a movable body as the JAX package's gather plan counts them (every
+    row, active or not) and of the active rows alone, and the checks'
+    flags: a finite state, every sphere inside the box, the stirrer's
+    spin."""
+    sp = coll.spheres
+    movable = model.props.inv_mass > 0
+    bilateral = bilateral_valence(model)
+
+    def valence(keep):
+        # three rows a contact on each of its two bodies (integer counts:
+        # the order of the adds does not matter)
+        sides = torch.cat([contacts.body_a, contacts.body_b]).long()
+        count = bilateral.clone()
+        count.scatter_add_(0, sides, torch.cat([keep, keep]).long() * 3)
+        return torch.where(movable, count, torch.zeros_like(count)).max()
+
+    x = state.x[sp.body.long()]
+    inside = ((x[:, 0] >= 0) & (x[:, 0] <= box) & (x[:, 1] >= 0)
+              & (x[:, 1] <= box) & (x[:, 2] > -MIXER_R)).all()
+    finite = torch.stack([torch.isfinite(getattr(state, f)).all()
+                          for f in "xqvw"]).all()
+    return torch.stack([
+        contacts.count.long(), info.iterations.long(),
+        cell_occupancy_max(coll.grid, x).long(),
+        valence(torch.ones_like(contacts.active)),
+        valence(contacts.active), finite.long(), inside.long(),
+        ]), state.w[stirrer, 2]
+
+
+def bilateral_valence(model):
+    """Bilateral rows on each body (a joint kind's rows, a motor's one row,
+    on both of its bodies): the mixer's speed motor puts its guiding
+    revolute's 5 rows and its speed row on the stirrer."""
+    count = torch.zeros(model.n_bodies, dtype=torch.int64,
+                        device=model.props.inv_mass.device)
+    for rows, group in ((None, model.joints), (1, model.motors)):
+        for kind, d in group.items():
+            w = JOINT_TYPES[kind][1] if rows is None else rows
+            for body in (d.body_a, d.body_b):
+                count.scatter_add_(0, body.long(),
+                                   torch.full_like(body.long(), w))
+    return count
+
+
+def mixer_steps(model, coll, state, settings, n, gamma, t, stirrer, box,
+                stats=None):
+    """``n`` steps of ``nsc_step``, the warm start carried as the bench
+    carries it (``info.joint_reactions * h``); ``stats`` collects each
+    step's ``mixer_stats``."""
+    for _ in range(n):
+        state, contacts, info = nsc_step(model, coll, state, t, MIXER_H,
+                                         settings, gamma_warm=gamma)
+        gamma = info.joint_reactions * MIXER_H
+        t = t + MIXER_H
+        if stats is not None:
+            stats.append(mixer_stats(model, coll, state, contacts, info,
+                                     stirrer, box))
+    return state, gamma, t
+
+
+def mixer_check(stats, coll, what):
+    """Raise unless every step held: returns the per-step table (numpy)
+    and the stirrer's spins."""
+    table = torch.stack([s for s, _ in stats]).cpu().numpy()
+    spin = torch.stack([w for _, w in stats]).cpu().numpy()
+    count, _, occ, _, _, finite, inside = table.T
+    require(finite.all(), f"{what}: a non-finite state")
+    require((count <= coll.max_contacts).all(),
+            f"{what}: {int(count.max())} contacts past the capacity "
+            f"{coll.max_contacts}")
+    require((occ <= coll.max_per_cell).all(),
+            f"{what}: {int(occ.max())} spheres in a cell "
+            f"(max_per_cell {coll.max_per_cell})")
+    require(inside.all(), f"{what}: a sphere left the box")
+    return table, spin
+
+
+def mixer_bilateral_rows(model):
+    return sum(JOINT_TYPES[k][1] * d.n for k, d in model.joints.items()) + \
+        sum(d.n for d in model.motors.values())
+
+
+def mixer_start(model, coll, state):
+    m = coll.max_contacts * 3 + mixer_bilateral_rows(model)
+    return (state.x.new_zeros((m,)),
+            torch.zeros((), dtype=torch.float32, device=state.x.device))
+
+
+def general_mixer_main_path(card, n_target=10_000, settle=150, timed=50):
+    """Config #2 as ``bench_mixer`` builds it, through ``nsc_step``: 150
+    settling and 50 timed steps at full width, the checks at every step,
+    the bit-for-bit repeat, a profiled step; then the 512-sphere scene
+    against the port on the CPU, every solver on ``drop_scene``, the Krylov
+    solvers through ``simulate`` and an SMC scene."""
+    model, coll, state, settings, stirrer, box = general_mixer_scene(
+        n_target, DEV)
+    n = coll.spheres.n
+    print(f"general mixer: {n} spheres, box {box:.4f} m, grid "
+          f"{coll.grid.dims} of {coll.grid.cell_size:.3f} m, max_per_cell "
+          f"{coll.max_per_cell}, max_contacts {coll.max_contacts}, "
+          f"{mixer_bilateral_rows(model)} bilateral rows, APGD "
+          f"{settings.max_iter} iterations, tol {settings.tol}")
+    gamma, t = mixer_start(model, coll, state)
+    stats = []
+    t0 = time.perf_counter()
+    state, gamma, t = mixer_steps(model, coll, state, settings, settle,
+                                  gamma, t, stirrer, box, stats)
+    torch.cuda.synchronize()
+    t_settle = time.perf_counter() - t0
+    table, spin = mixer_check(stats, coll, "settling")
+    print(f"general mixer, {settle} settling steps: {t_settle:.2f} s; "
+          f"contacts {int(table[0, 0])} → {int(table[-1, 0])}, fullest "
+          f"cell {int(table[:, 2].max())}, stirrer {spin[-1]:.6f} rad/s")
+    require(abs(spin[-1] - MIXER_SPEED) <= 0.01 * MIXER_SPEED,
+            f"the stirrer at {spin[-1]} rad/s after settling")
+
+    # the timed steps, their figures read once at the end
+    stats = []
+    tvi.reset_host_reads()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after, g_after, t_after = mixer_steps(model, coll, state, settings,
+                                          timed, gamma, t, stirrer, box,
+                                          stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    reads = tvi.host_reads() / timed
+    table, spin = mixer_check(stats, coll, "timed steps")
+    require((np.abs(spin - MIXER_SPEED) <= 0.01 * MIXER_SPEED).all(),
+            f"the stirrer between {spin.min()} and {spin.max()} rad/s")
+    iters = table[:, 1]
+    over = int((table[:, 3] > MIXER_VALENCE).sum())
+    over_active = int((table[:, 4] > MIXER_VALENCE).sum())
+    print(f"general mixer, {timed} timed steps [{card}]: "
+          f"{iters.sum() / dt:.1f} DVI iterations/s, "
+          f"{dt / timed * 1e3:.3f} ms a step, RTF "
+          f"{dt / (timed * MIXER_H):.3f}; {table[:, 0].mean():.1f} contacts "
+          f"and {iters.mean():.2f} APGD iterations a step on average, "
+          f"{reads:.1f} host reads a step; stirrer {spin.min():.6f}–"
+          f"{spin.max():.6f} rad/s")
+    print(f"general mixer, the JAX package's gather plan at valence "
+          f"{MIXER_VALENCE}: it would have overflowed in {over} of {timed} "
+          f"steps (most rows on a movable body, every row: "
+          f"{int(table[:, 3].max())}; the inactive rows all point at one "
+          f"sphere and the stirrer), in {over_active} counting active rows "
+          f"alone (most {int(table[:, 4].max())}, on average "
+          f"{table[:, 4].mean():.1f})")
+    print(f"general mixer state digest after {settle + timed} steps: "
+          f"{state_digest(after.x, after.q, after.v, after.w)}")
+
+    # no atomics: two runs of 20 steps from the same state, bit for bit
+    runs = [mixer_steps(model, coll, state, settings, 20, gamma, t,
+                        stirrer, box) for _ in range(2)]
+    same = all(torch.equal(getattr(runs[0][0], f), getattr(runs[1][0], f))
+               for f in "xqvw") and torch.equal(runs[0][1], runs[1][1])
+    require(same, "two runs of 20 mixer steps from one state differ")
+    print("general mixer, two runs of 20 steps from one state: equal bit "
+          "for bit (x, q, v, w and the warm start)")
+
+    # the solvers' D u fetches its rows' bodies by flat gathers: both forms
+    # timed at the mixer's rows
+    m = coll.max_contacts * 3 + mixer_bilateral_rows(model)
+    u8 = torch.randn(model.n_bodies, 8, device=DEV)
+    body = torch.randint(0, model.n_bodies, (m,), device=DEV)
+    take = (body[:, None] * 8 + torch.arange(8, device=DEV)).reshape(-1)
+    require(torch.equal(u8[body], torch.take(u8, take).view(-1, 8)),
+            "the flat gather differs from the row gather")
+    print(f"general mixer, a gather of {m} rows of ({model.n_bodies}, 8): "
+          f"row gather u8[body] {cuda_ms(lambda: u8[body], 50):.4f} ms, "
+          f"flat torch.take {cuda_ms(lambda: torch.take(u8, take), 50):.4f} "
+          f"ms (CUDA events, back to back)")
+
+    # one profiled step: kernels and device time
+    wall, events = device_events(lambda: mixer_steps(
+        model, coll, state, settings, 1, gamma, t, stirrer, box))
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    print(f"general mixer, one profiled step: {len(events)} kernels, "
+          f"{busy:.3f} ms of device time in {wall * 1e3:.3f} ms of wall "
+          f"(idle {1 - busy / (wall * 1e3):.4f}, profiler on)")
+
+    mixer_card_vs_cpu()
+    every_solver_on_the_card()
+    krylov_through_simulate()
+    smc_on_the_card()
+
+
+def mixer_card_vs_cpu(n_target=512, settle=100, steps=5):
+    """The mixer cut to 512 spheres, settled 100 steps on the card, then 5
+    steps on the card and through the port on the CPU from that state, in
+    float64 and in float32.
+
+    The scene is chaotic under 50 APGD iterations: on the CPU a warm start
+    changed by one part in 1e7 moves spheres by up to ~5e-4 m and 0.2 m/s
+    in these 5 steps, so rounding alone parts card and CPU in float32.  In
+    float64 they are held at the North star's tolerances; in float32
+    within four times what that perturbation of the warm start does to
+    the CPU's own run (its sensitivity, measured here), and at least the
+    North star's.  The iteration counts within 1 in both."""
+    model, coll, state, settings, stirrer, box = general_mixer_scene(
+        n_target, DEV)
+    gamma, t = mixer_start(model, coll, state)
+    state, gamma, t = mixer_steps(model, coll, state, settings, settle,
+                                  gamma, t, stirrer, box)
+    for dtype in (torch.float64, torch.float32):
+        runs = {}
+        for where, eps in (("card", 0.0), ("cpu", 0.0), ("cpu+", 1e-7)):
+            dev = DEV if where == "card" else torch.device("cpu")
+            m, c, _, _, _, _ = general_mixer_scene(n_target, dev, dtype)
+            st = BodyState(**{f: getattr(state, f).to(dev, dtype)
+                              for f in "xqvw"})
+            stats = []
+            end = mixer_steps(m, c, st, settings, steps,
+                              gamma.to(dev, dtype) * (1 + eps),
+                              t.to(dev, dtype), stirrer, box, stats)[0]
+            runs[where] = (BodyState(**{f: getattr(end, f).cpu().double()
+                                        for f in "xqvw"}),
+                           [int(s[0][1]) for s in stats],
+                           [int(s[0][0]) for s in stats])
+        card, cpu, nudged = runs["card"], runs["cpu"], runs["cpu+"]
+        require(all(abs(a - b) <= 1 for a, b in zip(card[1], cpu[1])),
+                f"{dtype}: APGD iterations, card {card[1]} vs CPU {cpu[1]}")
+        out = []
+        for f, (rtol, atol) in (("x", MIXER_X_TOL), ("v", MIXER_V_TOL)):
+            got, ref = getattr(card[0], f), getattr(cpu[0], f)
+            sens = float((getattr(nudged[0], f) - ref).abs().max())
+            if dtype == torch.float32:
+                atol = max(atol, 4 * sens)
+            err = check_close(got, ref, rtol, atol,
+                              f"mixer card vs CPU, {dtype}, {f}")
+            out.append(f"max |Δ{f}| {err[0]:.3e} ({err[1]:.3f} of its "
+                       f"tolerance; the CPU's sensitivity {sens:.3e})")
+        print(f"general mixer, {n_target} spheres settled {settle} steps "
+              f"on the card, then {steps} steps card vs the port on the "
+              f"CPU in {str(dtype)[6:]}: {', '.join(out)}; iterations card "
+              f"{card[1]}, CPU {cpu[1]}; contacts card {card[2]}, CPU "
+              f"{cpu[2]}")
+
+
+def drop_scene(device, mu=0.5, n_spheres=4, mu_roll=0.0, mu_spin=0.0):
+    """``tests/test_contact.py:124`` ``drop_scene``: spheres dropped in a
+    box on the ground, through the port's builder."""
+    b = SystemBuilder(device=device)
+    g = b.add_ground()
+    ids = [b.add_body(mass=1.0, inertia=(0.4 * 0.5**2,) * 3,
+                      pos=(0.1 * k, 0.07 * k, 1.0 + 1.2 * k))
+           for k in range(n_spheres)]
+    model, state = b.finalize()
+    dev = state.x.device
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    spheres = SphereShapes(body=t(ids, torch.int32),
+                           offset=t(np.zeros((n_spheres, 3))),
+                           radius=t(np.full(n_spheres, 0.5)),
+                           mu=t(np.full(n_spheres, mu)))
+    boxes = BoxShapes(body=t([g], torch.int32), pos=t([[0.0, 0.0, -0.5]]),
+                      rot=t([[1.0, 0, 0, 0]]), half=t([[10.0, 10.0, 0.5]]),
+                      mu=t([mu]))
+    coll = CollisionModel(
+        spheres=spheres, boxes=boxes,
+        grid=GridSpec(origin=(-12.0, -12.0, -2.0), cell_size=1.2,
+                      dims=(20, 20, 8)),
+        max_per_cell=8, max_contacts=64, mu_roll=mu_roll, mu_spin=mu_spin)
+    return model, coll, state
+
+
+def drop_run(device, solver, steps, **scene):
+    """``steps`` steps of 5 ms of ``drop_scene`` with the spheres lowered
+    into touch (the lowest 1 mm into the floor, each other 1 cm into the
+    one below, as ``tests/test_torch_contact.py`` stacks them) and random
+    speeds (seed 60)."""
+    model, coll, state = drop_scene(device, **scene)
+    x = state.x.clone()
+    x[1:, 2] = torch.tensor(0.499 + 0.99 * np.arange(4), dtype=x.dtype)
+    rng = np.random.default_rng(60)
+    v = torch.tensor(rng.normal(size=(5, 3)) * 0.2, dtype=x.dtype)
+    w = torch.tensor(rng.normal(size=(5, 3)), dtype=x.dtype)
+    v[0], w[0] = 0.0, 0.0
+    state = state.replace(x=x, v=v.to(x.device), w=w.to(x.device))
+    settings = SolverSettings(solver=solver, max_iter=80, tol=1e-7,
+                              stab_factor=0.2)
+    t = torch.zeros((), device=state.x.device)
+    iters = []
+    for _ in range(steps):
+        state, contacts, info = nsc_step(model, coll, state, t, 5e-3,
+                                         settings)
+        t = t + 5e-3
+        iters.append(int(info.iterations))
+    return state, iters, int(contacts.count)
+
+
+def every_solver_on_the_card(steps=10):
+    """``nsc_step`` on ``drop_scene(n_spheres=4)``, its spheres stacked in
+    touch, with every VI solver and the direct solver's APGD fallback, and
+    with rolling friction: 10 steps of 5 ms on the card and through the
+    port on the CPU."""
+    cases = [(s, {}) for s in ("apgd", "bb", "pjacobi", "admm", "direct")]
+    cases.append(("apgd", {"mu_roll": 0.01, "mu_spin": 0.005}))
+    for solver, scene in cases:
+        card_st, card_it, nc = drop_run(DEV, solver, steps, **scene)
+        cpu_st, cpu_it, _ = drop_run("cpu", solver, steps, **scene)
+        require(all(bool(torch.isfinite(getattr(card_st, f)).all())
+                    for f in "xqvw"), f"drop scene, {solver}: not finite")
+        err = float((card_st.x.cpu() - cpu_st.x).abs().max())
+        require(err <= 1e-3, f"drop scene, {solver}{scene}: card vs CPU "
+                f"max |Δx| {err}")
+        z = card_st.x[1:, 2].cpu().numpy()
+        print(f"drop scene ({solver}{', rolling' if scene else ''}), "
+              f"{steps} steps: {nc} contacts at the end, sphere heights "
+              f"{np.array2string(z, precision=4)}, card vs the port on the "
+              f"CPU max |Δx| {err:.3e}, iterations a step card "
+              f"{np.mean(card_it):.1f}, CPU {np.mean(cpu_it):.1f}")
+
+
+def krylov_through_simulate(steps=100):
+    """``bench_mbs`` through ``simulate`` with CG, MINRES and GMRES (an
+    eager loop on the card: their loop tests are host reads)."""
+    for solver in ("cg", "minres", "gmres"):
+        model, state = mbs_bench_scene(DEV)
+        settings = SolverSettings(solver=solver, max_iter=60, tol=1e-6)
+        tvi.reset_host_reads()
+        (final, _), wall = mbs_timed(lambda: simulate(
+            model, state, MBS_H, steps, settings, save_every=0))
+        reads = tvi.host_reads() / steps
+        viol = mbs_violation(model, final)
+        require(all(bool(torch.isfinite(getattr(final, f)).all())
+                    for f in "xqvw") and viol < MBS_VIOLATION,
+                f"bench_mbs with {solver}: joint violation {viol}")
+        print(f"bench_mbs through simulate with {solver}, {steps} steps: "
+              f"{wall / steps * 1e3:.3f} ms a step (eager), {reads:.1f} "
+              f"host reads a step, joint violation {viol:.3e}")
+
+
+def smc_scene(device):
+    """Four stacks of three spheres (r = 0.1 m, 1 kg; each on the one below
+    by 1 mm, the lowest on a ground box), Hertz contact with one-step
+    tangential friction (μ 0.4)."""
+    bld = SystemBuilder(device=device)
+    g = bld.add_ground()
+    ids = [bld.add_body(mass=1.0, inertia=(0.004,) * 3,
+                        pos=(0.21 * i, 0.21 * j, 0.0995 + 0.1995 * k))
+           for i in range(2) for j in range(2) for k in range(3)]
+    model, state = bld.finalize()
+    dev = state.x.device
+    n = len(ids)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    coll = CollisionModel(
+        spheres=SphereShapes(body=t(ids, torch.int32),
+                             offset=t(np.zeros((n, 3))),
+                             radius=t(np.full(n, 0.1)),
+                             mu=t(np.full(n, 0.4))),
+        boxes=BoxShapes(body=t([g], torch.int32), pos=t([[0.0, 0.0, -0.5]]),
+                        rot=t([[1.0, 0, 0, 0]]), half=t([[5.0, 5.0, 0.5]]),
+                        mu=t([0.4])),
+        grid=GridSpec(origin=(-1.0, -1.0, -1.0), cell_size=0.25,
+                      dims=(8, 8, 12)),
+        max_per_cell=8, max_contacts=128)
+    return model, coll, state
+
+
+def smc_on_the_card(steps=500, h=1e-4):
+    params = SMCParams(youngs=1e7, poisson=0.3, restitution=0.5)
+    out = {}
+    for where in (DEV, "cpu"):
+        model, coll, state = smc_scene(where)
+        t = torch.zeros((), device=state.x.device)
+        for _ in range(steps):
+            state, contacts, _ = smc_step(model, coll, state, t, h, params)
+            t = t + h
+        out[str(where)] = (state, int(contacts.count))
+    (card_st, nc), (cpu_st, _) = out[str(DEV)], out["cpu"]
+    require(all(bool(torch.isfinite(getattr(card_st, f)).all())
+                for f in "xqvw"), "SMC scene: not finite")
+    err = float((card_st.x.cpu() - cpu_st.x).abs().max())
+    require(err <= 1e-4, f"SMC scene, card vs CPU: max |Δx| {err}")
+    print(f"smc_step, 12 stacked spheres on a floor, {steps} steps of "
+          f"{h} s: {nc} contacts, lowest sphere at z = "
+          f"{float(card_st.x[1:, 2].min()):.5f}, card vs the port on the "
+          f"CPU max |Δx| {err:.3e}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3264,6 +3753,11 @@ def main():
     t0 = time.perf_counter()
     mbs_main_path(card)
     print(f"phase 11 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 12: rigid-body contact (config #2 as bench_mixer builds it)
+    t0 = time.perf_counter()
+    general_mixer_main_path(card)
+    print(f"phase 12 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,12 @@ and the two APGD sweeps of ``ops.cuda.nsc_sweep``; the multibody core
 ``step_euler_implicit_linearized`` and ``simulate``; ``solver.descriptor``
 and the compensated dense Schur solve ``solver.direct``), which has no TPU
 kernel: plain tensor code whose step ``simulate`` captures in a CUDA graph
-on the card.  Its builder puts the model on the card unless the caller
-passes ``device="cpu"``; only the direct solver is ported, and contact rows
-and shafts are refused.
+on the card with the direct solver; rigid-body contact (``collision``:
+the grid, the analytic narrowphase, ``detect_contacts``, ``contact_rows``
+and ``nsc_step`` for spheres, boxes and triangle meshes; ``physics.smc``
+penalty contact and ``smc_step``; the VI and Krylov solvers of
+``solver.vi`` and ``solver.krylov`` with the cone projector), also plain
+tensor code, whose solvers read their loop tests on the host and run
+eagerly.  Its builder puts the model on the card unless the caller passes
+``device="cpu"``; convex collision shapes and shafts are refused.
 """

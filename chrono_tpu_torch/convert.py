@@ -3,7 +3,9 @@
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``DEMBoundaries``
 (planes, cylinders, spheres, cones, wheels) / ``GridSpec`` / ``SPHParams`` /
 ``SPHState`` / ``CRMParams`` / ``CRMState`` / ``NSCPencilParams`` and the
-multibody ``Model`` / ``BodyState`` as pytrees of arrays and static fields.
+multibody ``Model`` / ``BodyState``, the contact pipeline's
+``CollisionModel`` / ``Contacts`` and ``SMCParams`` as pytrees of arrays and
+static fields.
 A caller that holds them flattens each into a mapping of field name → numpy
 array or Python scalar (nested mappings for the two materials, the wall
 kinds, and a model's joints, motors and force elements); these functions
@@ -20,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from chrono_tpu_torch.collision import pipeline as cp
 from chrono_tpu_torch.collision.cell_list import GridSpec
 from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
@@ -32,6 +35,7 @@ from chrono_tpu_torch.physics import force_elements as fe
 from chrono_tpu_torch.physics.body import BodyProps, BodyState
 from chrono_tpu_torch.physics.joints import JointData
 from chrono_tpu_torch.physics.motors import MotorData
+from chrono_tpu_torch.physics.smc import SMCParams
 from chrono_tpu_torch.physics.system import Model
 from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
 from chrono_tpu_torch.utils.tree import is_static
@@ -246,6 +250,58 @@ def mbs_model_from_numpy(leaves: Mapping[str, Any], *, device) -> Model:
         shaft_constraints={}, shaft_elements=None,
         couplers=kinds("couplers", JointData),
         bushings=optional("bushings", fe.BushingData))
+
+
+def collision_model_from_numpy(leaves: Mapping[str, Any], *, device
+                               ) -> cp.CollisionModel:
+    """The contact pipeline's ``CollisionModel`` on ``device`` from the JAX
+    ``CollisionModel``'s leaves: ``spheres`` and ``boxes`` / ``meshes`` (or
+    None) as mappings of their fields, ``grid`` as for
+    :func:`grid_from_numpy`, and the capacities, ``envelope``, ``mu_roll``,
+    ``mu_spin`` and ``mesh_candidates``.  Convex shapes are not ported: a
+    model with them is refused."""
+    convex = leaves.get("convex")
+    if convex is not None and np.asarray(convex["body"]).size:
+        raise NotImplementedError(cp.CONVEX_REFUSAL)
+
+    def shapes(key, cls):
+        v = leaves.get(key)
+        return None if v is None else _carrier(cls, v, device)
+
+    return cp.CollisionModel(
+        spheres=_carrier(cp.SphereShapes, leaves["spheres"], device),
+        boxes=shapes("boxes", cp.BoxShapes),
+        meshes=shapes("meshes", cp.MeshShapes),
+        grid=grid_from_numpy(leaves["grid"]),
+        max_per_cell=int(leaves["max_per_cell"]),
+        max_contacts=int(leaves["max_contacts"]),
+        envelope=_scalar(leaves.get("envelope", 0.0)),
+        mu_roll=_scalar(leaves.get("mu_roll", 0.0)),
+        mu_spin=_scalar(leaves.get("mu_spin", 0.0)),
+        mesh_candidates=int(leaves.get("mesh_candidates", 0)))
+
+
+def smc_params_from_numpy(leaves: Mapping[str, Any]) -> SMCParams:
+    """``SMCParams`` from the JAX ``SMCParams`` fields (material floats as
+    numpy scalars, the three model choices as strings)."""
+    return SMCParams(
+        **{f.name: (str(leaves[f.name]) if is_static(f)
+                    else _scalar(leaves[f.name]))
+           for f in fields(SMCParams) if f.name in leaves})
+
+
+def contacts_from_numpy(leaves: Mapping[str, Any], *, device) -> cp.Contacts:
+    """``Contacts`` on ``device`` from the JAX ``Contacts`` fields: int32
+    bodies and count, bool ``active``, float32 otherwise."""
+    def t(name, dtype):
+        return torch.as_tensor(np.array(leaves[name]), dtype=dtype,
+                               device=device)
+
+    return cp.Contacts(
+        body_a=t("body_a", torch.int32), body_b=t("body_b", torch.int32),
+        **{k: t(k, torch.float32) for k in ("point", "normal", "gap", "mu",
+                                            "r_eff")},
+        active=t("active", torch.bool), count=t("count", torch.int32))
 
 
 def _np(x) -> np.ndarray:

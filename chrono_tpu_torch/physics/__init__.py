@@ -1,5 +1,5 @@
 """The multibody core: bodies, joints, motors, force elements, the system
-model and its stepper, and the scene builder."""
+model and its stepper, the scene builder, and SMC penalty contact."""
 
 from chrono_tpu_torch.physics.body import (
     BodyProps, BodyState, kinetic_energy, make_body_state,
@@ -9,3 +9,4 @@ from chrono_tpu_torch.physics.system import (
     Model, SolverSettings, StepInfo, make_step_fn, simulate,
     step_euler_implicit_linearized,
 )
+from chrono_tpu_torch.physics.smc import SMCParams, smc_step, smc_contact_forces

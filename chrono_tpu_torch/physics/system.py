@@ -1,15 +1,17 @@
 """The multibody system model and its time stepper.
 
 Counterpart of ``chrono_tpu/physics/system.py``: the scene is a ``Model`` of
-batched tensors, and one step — force accumulation, constraint lowering
-(autodiff), the direct Schur solve, state integration — is plain tensor
-code with no host sync and no branch on data.  The JAX package compiles
-``simulate``'s whole ``lax.scan`` into one program; on a CUDA device this
-port captures one step into a ``torch.cuda.CUDAGraph`` and replays it, and
-on the CPU it runs the same step eagerly.
+batched tensors, and one step is force accumulation, constraint lowering
+(autodiff), the constraint solve (the dense direct Schur solve, or a VI or
+Krylov solver over the bilateral and contact rows) and state integration.
+The JAX package compiles ``simulate``'s whole ``lax.scan`` into one
+program.  This port, on a CUDA device with the ``"direct"`` solver, captures
+one step (no host sync, no branch on data) into a ``torch.cuda.CUDAGraph``
+and replays it; the VI and Krylov solvers read their loop tests on the
+host, so their steps run eagerly, and so does every step on the CPU.
 
-What is not ported yet refuses loudly: only the ``"direct"`` solver, no
-contact rows, no shafts (``physics/shafts.py`` comes in a later slice).
+Shafts are not ported yet (``physics/shafts.py`` comes in a later slice):
+a model with shafts is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ from chrono_tpu_torch.physics.constraints import ConstraintRows, concat_rows
 from chrono_tpu_torch.physics.joints import coupler_rows, joint_rows
 from chrono_tpu_torch.physics.motors import motor_loads, motor_rows
 from chrono_tpu_torch.solver import descriptor as desc
+from chrono_tpu_torch.solver import krylov
+from chrono_tpu_torch.solver import vi as vi_solvers
 from chrono_tpu_torch.solver.direct import solve_dense_schur
+from chrono_tpu_torch.solver.projection import make_projector
 from chrono_tpu_torch.utils.segment import scatter_add
 from chrono_tpu_torch.utils.tree import tensor_dataclass
 
@@ -38,7 +43,8 @@ from chrono_tpu_torch.utils.tree import tensor_dataclass
 class SolverSettings:
     """Solver configuration (the JAX package's fields and defaults)."""
 
-    solver: str = "apgd"           # apgd | bb | pjacobi | direct (ported)
+    # apgd | bb | admm | pjacobi | cg | minres | gmres | direct
+    solver: str = "apgd"
     max_iter: int = 100
     tol: float = 1e-6
     stab_factor: float = 1.0       # Baumgarte C/h scaling
@@ -54,9 +60,14 @@ class SolverSettings:
     stab_mode: str = "baumgarte"
     # "filtered" steady-state EMA gain (reached once 1/k < alpha_min)
     stab_alpha_min: float = 1.0 / 2048.0
-    # contact −C/h clamp (read by the contact solvers, not ported yet)
+    # contact −C/h clamp — the reference's default Qc_clamping
+    # (max_penetration_recovery_speed = 0.6)
     max_recovery_speed: float = 0.6
-    # per-body row-valence bound of the VI solvers' Dᵀγ gather (not ported)
+    # per-movable-body row bound of the JAX package's Dᵀγ gather plan (past
+    # it that package's solve falls back to its scatter form).  The port's
+    # solve sums each body's rows through a side plan with no cap and does
+    # not read it; descriptor.build_gather_plan takes it to report what the
+    # capped plan would have done.
     valence_bound: int = 96
 
 
@@ -184,30 +195,102 @@ def init_stab_state(model: Model, state: BodyState, t, h,
             torch.zeros((), dtype=torch.int32, device=state.x.device))
 
 
-def _solve(rows: ConstraintRows, model: Model, v_free, w_free,
-           settings: SolverSettings, n_contacts=0, D=None):
-    """The configured constraint solver: the dense direct Schur solve.
+def _direct(settings: SolverSettings, n_contacts: int) -> bool:
+    """The dense direct solve: ``"direct"`` with bilateral rows only (with
+    contact rows the JAX package falls back to APGD, and so does this
+    port)."""
+    return settings.solver == "direct" and n_contacts == 0
 
-    The JAX package also offers APGD, BB, ADMM, projected Jacobi and Krylov
-    solvers, and falls back to APGD for a direct solve with contacts; this
-    port has no VI solver yet, so those requests raise.
+
+def _solve(rows: ConstraintRows, model: Model, v_free, w_free,
+           settings: SolverSettings, n_contacts=0, mu=None, gamma0=None,
+           n_rolling=0, mu_roll=0.0, mu_spin=0.0, D=None, plan=None):
+    """Dispatch to the configured constraint solver → (γ, iterations,
+    residual), every solver and branch of the JAX package's ``_solve``:
+
+    - ``"direct"`` with no contact rows: the dense Schur solve (``D``, the
+      dense Jacobian, may be given);
+    - ``"apgd"``, ``"bb"``, ``"admm"``, ``"pjacobi"``, and ``"direct"``
+      with contact rows (the APGD fallback): the VI solvers, with the cone
+      projector of ``n_contacts`` contact triples after the bilateral rows
+      and ``n_rolling`` rolling triples after them;
+    - ``"cg"``, ``"minres"``, ``"gmres"``: the Krylov solvers on ``N γ =
+      −r`` (bilateral systems: no cone projection).
+
+    The VI and Krylov solvers read their loop tests on the host (see
+    ``solver/vi.py``).  Their ``N γ`` sums ``Dᵀγ`` at contact scale with no
+    atomics and in a fixed order: through the side plan of
+    ``descriptor.build_side_plan`` (``plan``, built here when not given),
+    the rows' sides sorted by body once a solve, each body's run summed in
+    row order with no cap.  The JAX package sums through a gather plan
+    capped at ``settings.valence_bound`` rows a body and falls back to its
+    scatter form past the cap; both give the same sums, and this port does
+    not cap.
     """
     m = rows.m
     if m == 0:
         return (v_free.new_zeros((0,)),
                 torch.zeros((), dtype=torch.int32, device=v_free.device),
                 v_free.new_zeros(()))
-    if settings.solver != "direct":
-        raise ValueError(
-            f"solver {settings.solver!r} is not ported: only 'direct' is "
-            "(the VI and Krylov solvers come in a later slice)")
-    if n_contacts > 0:
-        raise ValueError(
-            "contact rows are not ported: the direct solver takes bilateral "
-            "rows only, and the APGD fallback comes in a later slice")
-    gamma = solve_dense_schur(rows, model.props, v_free, w_free, D=D)
-    return (gamma, torch.ones((), dtype=torch.int32, device=v_free.device),
-            v_free.new_zeros(()))
+    if _direct(settings, n_contacts):
+        gamma = solve_dense_schur(rows, model.props, v_free, w_free, D=D)
+        return (gamma,
+                torch.ones((), dtype=torch.int32, device=v_free.device),
+                v_free.new_zeros(()))
+    if settings.solver not in _ITERATIVE:
+        raise ValueError(f"unknown solver {settings.solver!r}")
+
+    packed, minv8 = _packed(rows, model)
+    if plan is None:
+        plan = desc.build_side_plan(packed, minv8)
+
+    def Nop(g):
+        return desc.schur_product_sorted(packed, minv8, plan, g)
+
+    r = desc.schur_rhs_packed(packed, desc.pack_u(v_free, w_free))
+    project = make_projector(m - 3 * n_contacts - 3 * n_rolling,
+                             n_contacts, mu, n_rolling=n_rolling,
+                             mu_roll=mu_roll, mu_spin=mu_spin)
+    g0 = v_free.new_zeros((m,)) if gamma0 is None else gamma0
+    if settings.solver in ("apgd", "direct"):
+        sol = vi_solvers.solve_apgd(Nop, r, project, g0, settings.max_iter,
+                                    settings.tol)
+    elif settings.solver == "bb":
+        sol = vi_solvers.solve_bb(Nop, r, project, g0, settings.max_iter,
+                                  settings.tol)
+    elif settings.solver == "admm":
+        sol = vi_solvers.solve_admm(Nop, r, project, g0, settings.max_iter,
+                                    settings.tol)
+    elif settings.solver == "pjacobi":
+        sol = vi_solvers.solve_pjacobi(
+            Nop, r, project, g0, desc.diag_N_packed(packed, minv8),
+            settings.max_iter, settings.tol)
+    else:
+        # the Krylov menu for BILATERAL-ONLY systems (the reference's
+        # GMRES/MINRES engines); cone projection needs the VI solvers
+        dinv = 1.0 / desc.diag_N_packed(packed, minv8)
+        if settings.solver == "cg":
+            ls = krylov.solve_cg(Nop, -r, Minv=lambda x: dinv * x,
+                                 max_iter=settings.max_iter,
+                                 tol=settings.tol)
+        elif settings.solver == "minres":
+            ls = krylov.solve_minres(Nop, -r, max_iter=settings.max_iter,
+                                     tol=settings.tol)
+        else:
+            ls = krylov.solve_gmres(Nop, -r, tol=settings.tol)
+        sol = vi_solvers.VISolution(gamma=ls.x, iterations=ls.iterations,
+                                    residual=ls.residual)
+    return sol.gamma, sol.iterations, sol.residual
+
+
+_ITERATIVE = ("apgd", "bb", "admm", "pjacobi", "cg", "minres", "gmres",
+              "direct")
+
+
+def _packed(rows: ConstraintRows, model: Model):
+    """Packed rows (no third-body channel: only planetary shafts use it,
+    and shafts are not ported) and the packed M⁻¹."""
+    return desc.pack_rows(rows, has_c=False), desc.pack_minv(model.props)
 
 
 def step_euler_implicit_linearized(
@@ -232,16 +315,19 @@ def step_euler_implicit_linearized(
     forces at the step start, one solve for end-of-step velocities with
     stabilised constraints, then the symplectic position update.
 
-    ``extra_rows`` appends rows after the bilateral ones; ``n_contacts``,
-    ``n_rolling``, ``contact_mu`` and ``gamma_warm`` configure the contact
-    cone solve, which is not ported (``n_contacts > 0`` or ``n_rolling > 0``
-    raises).
+    ``extra_rows`` appends rows after the bilateral ones (the contact
+    pipeline's cone triples, then its rolling triples, LAST in the row
+    order); ``n_contacts`` / ``contact_mu`` and ``n_rolling`` / ``mu_roll``
+    / ``mu_spin`` configure the cone projector; ``gamma_warm`` warm-starts
+    the VI solver.  With ``"direct"`` and no contact rows the step solves
+    densely and updates the velocities from the dense D (no host sync: a
+    CUDA graph can capture it); otherwise ``_solve``'s VI or Krylov solver
+    reads its loop tests on the host and the velocities are updated
+    through the same side plan as its ``N γ``.
 
     Returns ``(new_state, info)``, with ``(cx, cq)`` after the state when
     ``position_comp`` is given and ``stab_state`` before ``info`` when it is.
     """
-    if n_rolling > 0:
-        raise ValueError("rolling-friction contact rows are not ported")
     f, tau = applied_forces(model, state, t, f_ext, tau_ext)
     v_free = state.v + h * model.props.inv_mass[:, None] * f
     w_free = state.w + h * model.props.inv_inertia * tau
@@ -263,16 +349,28 @@ def step_euler_implicit_linearized(
     if extra_rows is not None:
         rows = _concat([rows, extra_rows], state)
 
-    D = desc.dense_D(rows, model.n_bodies) if rows.m > 0 else None
-    gamma, iters, res = _solve(rows, model, v_free, w_free, settings,
-                               n_contacts=n_contacts, D=D)
-    if rows.m > 0:
+    if rows.m == 0:
+        gamma, iters, res = _solve(rows, model, v_free, w_free, settings)
+        v_new, w_new = v_free, w_free
+    elif _direct(settings, n_contacts):
+        D = desc.dense_D(rows, model.n_bodies)
+        gamma, iters, res = _solve(rows, model, v_free, w_free, settings,
+                                   D=D)
         # Dᵀγ from the dense D the solve built: a fixed sum order, no
         # atomics (the JAX package scatters the packed rows)
         v_new, w_new = desc.velocity_update_dense(D, model.props, gamma,
                                                   v_free, w_free)
     else:
-        v_new, w_new = v_free, w_free
+        packed, minv8 = _packed(rows, model)
+        plan = desc.build_side_plan(packed, minv8)
+        gamma, iters, res = _solve(
+            rows, model, v_free, w_free, settings, n_contacts=n_contacts,
+            mu=contact_mu, gamma0=gamma_warm, n_rolling=n_rolling,
+            mu_roll=mu_roll, mu_spin=mu_spin, plan=plan)
+        # Dᵀγ through the solve's side plan: no atomics, a fixed order (the
+        # JAX package scatters the packed rows)
+        v_new, w_new = desc.velocity_update_sorted(
+            plan, minv8, gamma, desc.pack_u(v_free, w_free))
 
     info = StepInfo(iterations=iters, residual=res,
                     joint_reactions=gamma / h, n_rows=rows.m)
@@ -347,14 +445,19 @@ def simulate(model: Model, state: BodyState, h: float, n_steps: int,
     1 + save_every, …), or ``(state, None)`` when ``save_every == 0``.
 
     ``t`` is a float32 device scalar advanced by ``h`` each step, as the JAX
-    package's scan carries it.  On a CUDA device one step is warmed up,
-    captured into a ``torch.cuda.CUDAGraph`` and replayed ``n_steps`` times:
-    the graph advances the state and ``t`` in place and, when
-    ``save_every > 0``, copies x and q into preallocated trajectory buffers.
-    On the CPU the same step runs eagerly.
+    package's scan carries it.  With the ``"direct"`` solver on a CUDA
+    device one step is warmed up, captured into a ``torch.cuda.CUDAGraph``
+    and replayed ``n_steps`` times: the graph advances the state and ``t``
+    in place and, when ``save_every > 0``, copies x and q into preallocated
+    trajectory buffers.  Any other solver reads its loop tests on the host,
+    which a graph cannot hold: its steps run as an eager loop on the card,
+    chosen here by ``settings.solver`` before any capture.  On the CPU
+    every step runs eagerly.
     """
     t = torch.full((), t0, dtype=state.x.dtype, device=state.x.device)
-    if state.x.is_cuda:
+    # route by the solver before any capture: only the direct solve's step
+    # is free of host reads
+    if state.x.is_cuda and settings.solver == "direct":
         return _simulate_graph(model, state, h, n_steps, settings, t,
                                save_every)
     xs, qs = [], []
