@@ -138,7 +138,28 @@ once) and then runs:
    direct solver's APGD fallback and rolling friction, card against CPU;
    ``bench_mbs`` through ``simulate`` with CG, MINRES and GMRES (an eager
    loop: their loop tests are host reads), joint violation below 1e-3;
-   ``smc_step`` on a stack of spheres, card against CPU.
+   ``smc_step`` on a stack of spheres, card against CPU;
+13. the vehicle on CRM terrain (config #5 as ``bench_suite.py``'s
+   ``bench_crm`` builds it, on the CRM kernels of phases 5–6): (a) the
+   single-wheel mini bed of tests/test_crm_terrain.py (4,636 markers),
+   4 outer steps of 2 substeps through ``crm_fsi_step``, through
+   ``make_crm_fsi_advance_fn`` with and without an active box and through
+   the persistent advance at ``rebuild_outer`` 1 and 3 with ``whole_outer`` on
+   and off, card against the port on the CPU, M's acceleration on the
+   wheel's markers against its twin, the reduction twice bit for bit and
+   against the CPU, two runs bit for bit; (b) the demo's 17-body vehicle
+   (four double-wishbone corners, BCE wheels) on its 2.0 × 1.2 × 0.15 m
+   bed at d0 = 0.05 for ``bench_crm``'s 6 intervals of 40 outer steps
+   through ``make_crm_fsi_advance_persistent`` with ``whole_outer`` on and
+   then off (dv "last"), each interval printed as the demo prints it, the
+   steady-state RTF, a profiled chunk (ms and kernels an outer step, the
+   multibody step's share), checked for overflow, finite values, walls
+   unmoved, rigid markers at x_b + R ξ, the Drucker–Prager cone, joint
+   violation, the rut, a bit-for-bit repeat, the engines against each
+   other and the first 10 outer steps against the port on the CPU; then
+   driven to the demo's 0.4 s (the chassis turns forward); (c) the same
+   vehicle on phase 6's 10 × 4 × 0.2 m lane (1,400,335 markers), 1
+   warm-up and 2 timed intervals on each engine with the same checks.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -170,15 +191,27 @@ from chrono_tpu_torch.dem.cell_dense import (
 )
 from chrono_tpu_torch.dem.forces import _cross, _pair_force
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
-from chrono_tpu_torch.fsi.crm_terrain import make_crm_terrain_state
+from chrono_tpu_torch.fsi import bce as fsi_bce
+from chrono_tpu_torch.fsi.active import ActiveDomainSpec
+from chrono_tpu_torch.fsi.crm_terrain import (
+    CRMFSIState, MBSStep, bce_extras, crm_fsi_step, make_crm_fsi_advance_fn,
+    make_crm_fsi_advance_persistent, make_crm_terrain_state, rigid_slots,
+    wheel_bce_markers,
+)
+from chrono_tpu_torch.fsi.crm_terrain import (
+    body_forces_planes as fsi_body_forces,
+)
 from chrono_tpu_torch.fsi.sph.crm import CRMParams
 from chrono_tpu_torch.fsi.sph.crm_pencil import (
     cells_to_crm_state, make_crm_advance_pencil, make_crm_engine,
+    make_crm_substeps_pencil,
 )
 from chrono_tpu_torch.fsi.sph.pencil import (
     bin_to_cells, make_sph_advance_pencil, state_to_cells,
 )
-from chrono_tpu_torch.fsi.sph.state import FLUID, SPHParams
+from chrono_tpu_torch.fsi.sph.state import (
+    BOUNDARY, FLUID, RIGID_BCE, SPHParams,
+)
 from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
@@ -217,6 +250,9 @@ from chrono_tpu_torch.solver.nsc_pencil import (
     NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
 )
 from chrono_tpu_torch.utils.samplers import grid_sample_box
+from chrono_tpu_torch.vehicle.suspension import (
+    WishboneHardpoints, add_double_wishbone_corner,
+)
 
 DEV = torch.device("cuda", 0)
 G = 9.81
@@ -2997,8 +3033,8 @@ def mbs_eager(model, state, n, settings, **carry):
 
 
 def mbs_violation(model, state):
-    return max(float(joint_violation(k, d, state.x, state.q).abs().max())
-               for k, d in model.joints.items())
+    return max((float(joint_violation(k, d, state.x, state.q).abs().max())
+                for k, d in model.joints.items()), default=0.0)
 
 
 def mbs_state_err(got, ref):
@@ -3621,6 +3657,641 @@ def smc_on_the_card(steps=500, h=1e-4):
           f"CPU max |Δx| {err:.3e}")
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+# the North star's state tolerances (tests/test_pallas_kernel.py:261-266):
+# positions rtol 1e-4 / atol 1e-5, velocities rtol 1e-3 / atol 1e-4
+NS_X_TOL = dict(rtol=1e-4, atol=1e-5)
+NS_V_TOL = dict(rtol=1e-3, atol=1e-4)
+# the persistent advance against the per-outer step: at rebuild_outer 1 the
+# bodies at tests/test_crm_terrain.py:234-239 (x rtol 1e-5 / atol 1e-6, v
+# rtol 1e-4 / atol 1e-5), at rebuild_outer 3 with dv "last" |Δx| < 2e-3
+# (:252-253)
+FSI_X_TOL = dict(rtol=1e-5, atol=1e-6)
+FSI_V_TOL = dict(rtol=1e-4, atol=1e-5)
+FSI_STALE_DX = 2e-3
+# the vehicle's velocities over tens of outer steps (card against CPU,
+# or one engine against the other): the 17-body step's float32 solve alone
+# moves ω by ~5e-4 rad/s and v by ~4e-5 m/s in 10–40 steps of 4e-4 s (the
+# port's step on the CPU in float32 against float64, the vehicle falling
+# freely: ω 5.1e-4 / 5.5e-4, v 3.7e-5 / 4.2e-5 after 10 / 40 steps), and
+# the terrain's reaction summed in another order adds to it: ω held at ten
+# times its floor, v at 1e-3 m/s (the lane's two engines differ by
+# 3.8e-4 after 40 outer steps); positions stay at the North star's
+VEHICLE_W_TOL = dict(rtol=1e-3, atol=5e-3)
+VEHICLE_V_TOL = dict(rtol=1e-3, atol=1e-3)
+# bench_suite.py:589-612 bench_crm: 6 intervals of 40 outer steps,
+# capacity 32, rebuild_outer 5 (demos/demo_vehicle_crm.py:143-172)
+CRM_VEHICLE_INTERVALS = 6
+CRM_VEHICLE_OUTER = 40
+CRM_VEHICLE_REBUILD = 5
+CRM_VEHICLE_C = 32
+# outer steps of the first interval held to the port's CPU run (the twins
+# take ~3 s an outer step on the demo bed on 8 CPU cores: 40 take ~120 s)
+CRM_VEHICLE_CPU_OUTER = 10
+# intervals past bench_crm's 6 with the drive on (it starts at 0.15 s,
+# after the bench's 0.096 s), up to the demo's own 25 (0.4 s): the
+# vehicle rolls back ~1 cm while it settles, then the drive turns it
+CRM_VEHICLE_DRIVEN = 19
+# the demo's wheel and its start (demos/demo_vehicle_crm.py:86-89)
+R_WHEEL, W_WHEEL, SINK0 = 0.16, 0.12, 0.02
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def as_float32(params, soil):
+    """``params`` and ``soil`` with every float rounded to float32, as the
+    JAX package holds them (its scenes read d0 back as float32(d0), which
+    moves the bed's marker lattice)."""
+    def f32(v):
+        return float(np.float32(v))
+
+    params = params.replace(**{k: f32(getattr(params, k)) for k in (
+        "d0", "h", "rho0", "mu", "c_s", "dt", "eos_gamma", "alpha_visc",
+        "delta_sph", "xsph_eps")},
+        gravity=tuple(f32(g) for g in params.gravity))
+    soil = soil.replace(**{k: f32(getattr(soil, k)) for k in (
+        "youngs", "poisson", "friction_angle", "cohesion")})
+    return params, soil
+
+
+def crm_wheel_scene(device=None):
+    """The single-wheel mini bed of tests/test_crm_terrain.py:171-205: a
+    0.45 × 0.24 × 0.12 m bed at d0 = 0.03 (E = 2e6, ν = 0.3, tan φ = 0.7,
+    no cohesion, α = 0.1), a 10 kg wheel of r = 0.08, w = 0.09 pre-sunk by
+    2 cm in a carved crater, a 3 N·m torque about y, on ``device`` (the
+    card by default).  The drive records the bodies it is called with
+    (``seen``), as :func:`crm_vehicle_scene`'s does."""
+    dev = torch.device(device or DEV)
+    params, soil = as_float32(
+        SPHParams(d0=0.03, h=1.2 * 0.03, rho0=1700.0, mu=0.0, c_s=40.0,
+                  gravity=(0.0, 0.0, -G), dt=1e-4, alpha_visc=0.1,
+                  rebuild_every=4),
+        CRMParams(youngs=2e6, poisson=0.3, friction_angle=0.7,
+                  cohesion=0.0))
+    d0 = params.d0
+    bed, depth, r_wheel, w_wheel, sink0 = (0.45, 0.24), 0.12, 0.08, 0.09, 0.02
+    local = wheel_bce_markers(r_wheel, w_wheel, d0)
+    x0 = np.array([0.18, bed[1] / 2, depth + r_wheel + 0.5 * d0 - sink0])
+
+    def carve(pts):
+        dxz = pts[:, [0, 2]] - x0[[0, 2]]
+        in_r = np.linalg.norm(dxz, axis=1) < (r_wheel + d0)
+        in_y = np.abs(pts[:, 1] - x0[1]) < (w_wheel / 2 + d0)
+        return ~(in_r & in_y)
+
+    bld = SystemBuilder(device=dev)
+    bld.set_gravity((0, 0, -G))
+    wheel = bld.add_body(mass=10.0, inertia=(0.05, 0.08, 0.05), pos=x0)
+    model, bodies = bld.finalize()
+    terrain, grid = make_crm_terrain_state(
+        params, soil, bed, depth, rigid_pts=local + x0,
+        rigid_body_ids=[wheel] * len(local), rigid_local=local,
+        carve_fn=carve, device=dev)
+    f0 = torch.zeros((model.n_bodies, 3), device=dev)
+    tau = torch.zeros((model.n_bodies, 3), device=dev)
+    tau[wheel, 1] = 3.0
+    seen = {}
+
+    def drive(t, b):
+        seen["bodies"] = b
+        return f0, tau
+
+    return dict(params=params, soil=soil, grid=grid, model=model,
+                state=CRMFSIState(bodies=bodies, terrain=terrain,
+                                  time=torch.zeros((), device=dev)),
+                wheels=[wheel], drive=drive, seen=seen, n_rigid=len(local))
+
+
+def crm_vehicle(bld, pos0, wheelbase=1.2, track=0.7, chassis_mass=60.0):
+    """``demos/demo_vehicle_crm.py:42-66`` ``build_vehicle`` on the port's
+    builder: a 60 kg chassis and four double-wishbone corners of
+    ``vehicle.suspension``.  Returns (chassis, corners by name)."""
+    chassis = bld.add_body(mass=chassis_mass, inertia=(20.0, 40.0, 50.0),
+                           pos=pos0)
+    hp = WishboneHardpoints(
+        spindle=(0.0, 0.0, 0.0),
+        uca_front=(0.10, -0.28, 0.16), uca_rear=(-0.10, -0.28, 0.16),
+        uca_ball=(0.0, -0.06, 0.18),
+        lca_front=(0.12, -0.30, -0.10), lca_rear=(-0.12, -0.30, -0.10),
+        lca_ball=(0.0, -0.04, -0.12),
+        spring_chassis=(0.0, -0.22, 0.30), spring_lca=(0.0, -0.12, -0.10),
+        tierod_chassis=(0.15, -0.28, 0.0), tierod_upright=(0.14, -0.06, 0.0),
+        masses=dict(uca=1.5, lca=2.0, upright=4.0, wheel=8.0),
+        inertias=dict(uca=(0.01, 0.01, 0.02), lca=(0.01, 0.01, 0.02),
+                      upright=(0.05, 0.05, 0.05), wheel=(0.10, 0.16, 0.10)),
+        spring_k=120e3, spring_c=6e3)
+    corners = {}
+    for name, dx, side in (("FL", +wheelbase / 2, +1),
+                           ("FR", +wheelbase / 2, -1),
+                           ("RL", -wheelbase / 2, +1),
+                           ("RR", -wheelbase / 2, -1)):
+        origin = np.asarray(pos0) + np.array([dx, side * track / 2, -0.15])
+        corners[name] = add_double_wishbone_corner(bld, chassis, origin, hp,
+                                                   side=side)
+    return chassis, corners
+
+
+def crm_vehicle_scene(size=(2.0, 1.2), depth=0.15, d0=0.05, margin=3.5,
+                      device=None):
+    """Config #5 as ``bench_crm`` builds it (demos/demo_vehicle_crm.py:
+    69-186): the demo's loam at ``d0``, a ``size`` bed ``depth`` deep, the
+    vehicle of :func:`crm_vehicle` at x = 0.6 m, mid-bed, its wheels 2 cm
+    into carved craters, each wheel's BCE cylinder of r = 0.16 m and w =
+    0.12 m, air 12 d0, ``margin`` (3.5 d0: the demo's flat2 layout), and
+    a 14 N·m drive torque on every wheel after 0.15 s.  The drive
+    records the bodies it is called with (``seen``): the state the
+    last outer step moved the wheels' markers to."""
+    dev = torch.device(device or DEV)
+    params, soil = as_float32(*crm_soil(d0))
+    d0 = params.d0
+    z_chassis = depth + R_WHEEL + 0.5 * d0 - SINK0 + 0.15
+    pos0 = (0.6, size[1] / 2, z_chassis)
+    bld = SystemBuilder(device=dev)
+    bld.set_gravity((0, 0, -G))
+    chassis, corners = crm_vehicle(bld, pos0)
+    model, bodies = bld.finalize()
+    wheels = [corners[k].wheel for k in ("FL", "FR", "RL", "RR")]
+    local = wheel_bce_markers(R_WHEEL, W_WHEEL, d0)
+    wheel_pos = bodies.x[wheels].cpu().numpy()
+    rigid_pts = np.concatenate([local + xw for xw in wheel_pos])
+    rigid_ids = np.repeat(wheels, len(local))
+
+    def carve(pts):
+        keep = np.ones(len(pts), bool)
+        for xw in wheel_pos:
+            dxz = pts[:, [0, 2]] - xw[[0, 2]]
+            in_r = np.linalg.norm(dxz, axis=1) < (R_WHEEL + d0)
+            in_y = np.abs(pts[:, 1] - xw[1]) < (W_WHEEL / 2 + d0)
+            keep &= ~(in_r & in_y)
+        return keep
+
+    terrain, grid = make_crm_terrain_state(
+        params, soil, size, depth, rigid_pts=rigid_pts,
+        rigid_body_ids=rigid_ids, rigid_local=np.tile(local, (4, 1)),
+        carve_fn=carve, air=12.0, margin=margin, device=dev)
+    on_wheels = torch.zeros((model.n_bodies, 3), device=dev)
+    on_wheels[wheels, 1] = 1.0
+    seen = {}
+
+    def drive(t, b):
+        seen["bodies"] = b
+        return None, on_wheels * torch.where(t > 0.15, 14.0, 0.0)
+
+    return dict(params=params, soil=soil, grid=grid, model=model,
+                state=CRMFSIState(bodies=bodies, terrain=terrain,
+                                  time=torch.zeros((), device=dev)),
+                wheels=wheels, drive=drive, seen=seen, chassis=chassis,
+                corners=corners, n_rigid=len(rigid_ids), depth=depth, d0=d0,
+                size=size)
+
+
+def crm_launches():
+    return {"crm_momentum": crm.crm_momentum.launches,
+            "crm_gradv_stress": crm.crm_gradv_stress.launches,
+            "crm_outer": crm.crm_outer_substeps.launches}
+
+
+def crm_reset_launches():
+    crm.crm_momentum.launches = crm.crm_gradv_stress.launches = 0
+    crm.crm_outer_substeps.launches = 0
+
+
+def fsi_persistent(sc, dev, rebuild_outer, dv_mode, whole_outer,
+                   n_sub=None, C=CRM_VEHICLE_C):
+    """``make_crm_fsi_advance_persistent`` of scene ``sc`` on ``dev``."""
+    return make_crm_fsi_advance_persistent(
+        sc["model"], sc["params"], sc["soil"], sc["grid"],
+        n_substeps=n_sub or sc["params"].rebuild_every,
+        wheel_bodies=sc["wheels"], f_ext_fn=sc["drive"], pencil_capacity=C,
+        rebuild_outer=rebuild_outer, dv_mode=dv_mode,
+        whole_outer=whole_outer, device=dev)
+
+
+def fsi_per_outer(sc, dev, n_outer, n_sub):
+    """``n_outer`` calls of ``crm_fsi_step`` on the pencil engine."""
+    subs = make_crm_substeps_pencil(sc["params"], sc["soil"], sc["grid"],
+                                    32, device=dev)
+    st = sc["state"]
+    for _ in range(n_outer):
+        st, ov, _ = crm_fsi_step(sc["model"], sc["params"], sc["soil"],
+                                 sc["grid"], st, n_sub, sc["wheels"],
+                                 f_ext_fn=sc["drive"], substeps_fn=subs)
+        require(int(ov) == 0, f"per-outer step: overflow {int(ov)}")
+    return st
+
+
+def fsi_active_spec(sc):
+    """An active box around the wheel (half-extents 0.12 × 0.2 × 0.3 m, a
+    0.08 m margin) whose buffer holds every extended-active marker with 64
+    to spare, and the (N,) mask of the markers outside it."""
+    box, margin = torch.tensor([0.12, 0.2, 0.3]), torch.tensor([0.08] * 3)
+    t, b = sc["state"].terrain, sc["state"].bodies
+    d = (t.pos - b.x[sc["wheels"][0]]).abs().cpu()
+    ext = (d <= box + margin).all(1) | (t.kind == RIGID_BCE).cpu()
+    return (ActiveDomainSpec(box=box, margin=margin,
+                             capacity=int(ext.sum()) + 64), ~ext)
+
+
+def fsi_advance_fn(sc, dev, n_outer, n_sub, active):
+    """``make_crm_fsi_advance_fn`` on the pencil engine, with or without
+    the active box of :func:`fsi_active_spec`."""
+    spec = fsi_active_spec(sc)[0] if active else None
+    st, ov = make_crm_fsi_advance_fn(
+        sc["model"], sc["params"], sc["soil"], sc["grid"], n_sub,
+        sc["wheels"], active=spec, f_ext_fn=sc["drive"], engine="pencil",
+        pencil_capacity=32, device=dev)(sc["state"], n_outer)
+    require(int(ov) == 0, f"advance_fn (active {active}): overflow")
+    return st
+
+
+def fsi_close(got, ref, what, x_tol=NS_X_TOL, v_tol=NS_V_TOL, terrain=True,
+              long_run=False):
+    """Bodies (x, q at the x tolerance; v, ω at the v tolerance) and, with
+    ``terrain``, the terrain's x and v, ``got`` against ``ref`` (either
+    device).  With ``long_run`` (the vehicle over tens of outer steps) the
+    bodies' v and ω are held at ``VEHICLE_V_TOL`` and ``VEHICLE_W_TOL``
+    and the terrain's v as phase 5 holds 3 cycles (rtol 1e-4, atol
+    1e-3·max|v|: the edge markers kicked to ~3 m/s carry the sum-order
+    differences).  Returns the largest error over its tolerance."""
+    pairs = [(got.bodies.x, ref.bodies.x, x_tol, "bodies x"),
+             (got.bodies.q, ref.bodies.q, x_tol, "bodies q"),
+             (got.bodies.v, ref.bodies.v,
+              VEHICLE_V_TOL if long_run else v_tol, "bodies v"),
+             (got.bodies.w, ref.bodies.w,
+              VEHICLE_W_TOL if long_run else v_tol, "bodies w")]
+    if terrain:
+        v_ref = ref.terrain.vel.cpu()
+        tv = (dict(rtol=1e-4, atol=1e-3 * float(v_ref.abs().max()))
+              if long_run else v_tol)
+        pairs += [(got.terrain.pos, ref.terrain.pos, x_tol, "terrain x"),
+                  (got.terrain.vel, v_ref, tv, "terrain v")]
+    return max(check_close(g.cpu(), r.cpu(), what=f"{what} {w}", **tol)[1]
+               for g, r, tol, w in pairs)
+
+
+def fsi_equal(a, b):
+    """Every field of two CRMFSIStates equal bit for bit."""
+    fields = [(a.bodies, b.bodies, "xqvw"),
+              (a.terrain, b.terrain, ("pos", "vel", "rho", "tau_d",
+                                      "tau_o"))]
+    return all(torch.equal(getattr(x, f), getattr(y, f))
+               for x, y, names in fields for f in names) \
+        and torch.equal(a.time, b.time)
+
+
+def fsi_rigid_acc(sc):
+    """On the scene's first binning (the wheels' markers moved to their
+    bodies): sweep M's acceleration of the rigid markers against its twin
+    on the same inputs, and the persistent path's reduction twice on the
+    card (bit for bit) and against the CPU's.  Returns (acc errors, force
+    and torque errors over their tolerance)."""
+    out = {}
+    for dev in (DEV, torch.device("cpu")):
+        s = sc if dev == DEV else crm_wheel_scene("cpu")
+        terrain, bodies = s["state"].terrain, s["state"].bodies
+        pos, vel = fsi_bce.update_rigid_markers(
+            terrain.pos, terrain.vel, terrain.kind, terrain.body_id,
+            terrain.bce_local, bodies.x, bodies.q, bodies.v, bodies.w)
+        terrain = terrain.replace(pos=pos, vel=vel)
+        eng = make_crm_engine(s["params"], s["soil"], s["grid"], 32,
+                              device=dev)
+        feat, _, cells, ovf, aux = eng["bin"](terrain, bce_extras(terrain))
+        require(int(ovf) == 0, "the wheel bed overflows its cells")
+        is_wheel = torch.ones(bodies.n, dtype=torch.bool, device=dev)
+        rs = rigid_slots(aux, is_wheel, s["n_rigid"])
+        acc = eng["forces"](feat, cells)
+        red = [fsi_body_forces(s["params"], feat, acc, rs, bodies)
+               for _ in range(2)]
+        out[dev.type] = (feat, cells, eng["consts"], acc, rs, red)
+    feat, cells, c, acc, rs, red = out[DEV.type]
+    _, twin = crm.crm_momentum_plain(feat, cells, c, with_acc=True)
+    errs = {"acc on rigid markers": crm_scaled_close(
+        acc[:, rs.slots], twin[:, rs.slots], 1e-4, 5e-5,
+        "M's acceleration on the rigid markers")}
+    (f1, t1), (f2, t2) = red
+    require(torch.equal(f1, f2) and torch.equal(t1, t2),
+            "the reduction differs between two calls on the card")
+    fc, tc = out["cpu"][5][0]
+    worst = 0.0
+    for got, ref, what in ((f1, fc, "force"), (t1, tc, "torque")):
+        require(float(ref.abs().max()) > 0, f"no {what} on the wheel")
+        worst = max(worst, crm_scaled_close(got.cpu(), ref, 1e-4, 1e-4,
+                                            f"reduction {what}")[1])
+    return errs, worst, f1[sc["wheels"][0]].cpu().tolist()
+
+
+def fsi_wheel_parity():
+    """Phase 13 (a): the single-wheel mini bed, 4 outer steps of 2
+    substeps, on the card against the port on the CPU."""
+    sc, cpu = crm_wheel_scene(), crm_wheel_scene("cpu")
+    n_sub, n_outer = 2, 4
+    errs, red_ratio, f_wheel = fsi_rigid_acc(sc)
+    print(f"wheel bed ({sc['state'].terrain.n} markers, {sc['n_rigid']} on "
+          f"the wheel): {format_errs({'crm_momentum': errs})}; the "
+          f"reduction twice on the card bit for bit, against the CPU "
+          f"{red_ratio:.3f} of its tolerance (force {f_wheel} N)")
+    runs = {"per-outer": lambda s, d: fsi_per_outer(s, d, n_outer, n_sub),
+            "advance_fn": lambda s, d: fsi_advance_fn(s, d, n_outer, n_sub,
+                                                      False),
+            "advance_fn, active": lambda s, d: fsi_advance_fn(
+                s, d, n_outer, n_sub, True)}
+    for ro, dv, whole in ((1, "fresh", False), (1, "last", True),
+                          (3, "last", False), (3, "last", True)):
+        def run(s, d, ro=ro, dv=dv, whole=whole):
+            st, ov = fsi_persistent(s, d, ro, dv, whole, n_sub)(
+                s["state"], n_outer)
+            require(int(ov) == 0, f"persistent {ro} {dv} {whole}: overflow")
+            return st
+        runs[(ro, dv, whole)] = run
+    card = {k: f(sc, DEV) for k, f in runs.items()}
+    # on the CPU the whole-outer twin is the per-sweep twins in "last"
+    cpu_ref = {k: runs[k](cpu, torch.device("cpu")) for k in (
+        "per-outer", "advance_fn", "advance_fn, active",
+        (1, "fresh", False), (3, "last", False))}
+    cpu_ref[(1, "last", False)] = fsi_persistent(
+        cpu, torch.device("cpu"), 1, "last", False, n_sub)(cpu["state"],
+                                                           n_outer)[0]
+    lines = []
+    for k, st in card.items():
+        ref_key = (k[0], k[1], False) if isinstance(k, tuple) else k
+        r = fsi_close(st, cpu_ref[ref_key], f"{k} card vs CPU")
+        lines.append(f"{k}: {r:.3f}")
+    print("wheel bed, 4 outer steps x 2 substeps, card vs the port on the "
+          "CPU (largest error over the North star's tolerance): "
+          + "; ".join(lines))
+    base = card["per-outer"]
+    far = fsi_active_spec(sc)[1].to(DEV)
+    act = card["advance_fn, active"].terrain
+    require(torch.equal(act.pos[far], sc["state"].terrain.pos[far])
+            and torch.equal(act.vel[far], sc["state"].terrain.vel[far]),
+            "the active-domain advance moved a marker outside its box")
+    r_fn = fsi_close(card["advance_fn"], base, "advance_fn vs per-outer")
+    r1 = fsi_close(card[(1, "fresh", False)], base,
+                   "rebuild 1 vs per-outer", FSI_X_TOL, FSI_V_TOL, False)
+    dx = float((card[(3, "last", False)].bodies.x
+                - base.bodies.x).abs().max())
+    require(dx < FSI_STALE_DX, f"rebuild 3 vs per-outer: |dx| {dx}")
+    r_outer = fsi_close(card[(3, "last", True)], card[(3, "last", False)],
+                        "crm_outer vs per-sweep")
+    again = {k: runs[k](sc, DEV) for k in ((1, "fresh", False),
+                                           (3, "last", True))}
+    require(all(fsi_equal(again[k], card[k]) for k in again),
+            "wheel bed: two runs on the card differ")
+    print(f"wheel bed on the card: make_crm_fsi_advance_fn (the graph "
+          f"replay of the multibody step) vs the per-outer steps (eager) "
+          f"{r_fn:.3f} of the North star's tolerance; with the active box "
+          f"{int(far.sum())} markers outside it unmoved bit for bit; "
+          f"persistent at rebuild 1 vs per-outer "
+          f"{r1:.3f} of tests/test_crm_terrain.py:234-239's tolerance; at "
+          f"rebuild 3, dv last |dx| {dx:.3e} (< {FSI_STALE_DX}); crm_outer "
+          f"vs per-sweep {r_outer:.3f} of the North star's; two runs bit "
+          f"for bit")
+
+
+def vehicle_line(sc, st, ovf):
+    """The demo's interval line (demos/demo_vehicle_crm.py:196-205)."""
+    ch, rl = sc["chassis"], sc["corners"]["RL"].wheel
+    xc, vx = float(st.bodies.x[ch, 0]), float(st.bodies.v[ch, 0])
+    wr = float(st.bodies.w[rl, 1])
+    slip = 1.0 - vx / max(wr * R_WHEEL, 1e-6) if wr > 0.1 else 0.0
+    zw = float(st.bodies.x[sc["wheels"], 2].mean())
+    z0 = sc["depth"] + R_WHEEL + 0.5 * sc["d0"] - SINK0
+    rut = (z0 - zw) * 1000 + SINK0 * 1000
+    return (f"t={float(st.time):5.3f}s ovf={ovf} x={xc:.4f} v={vx:6.3f} m/s "
+            f"rut={rut:5.2f} mm slip={slip:5.2f} ω_RL={wr:6.3f}"), rut
+
+
+def vehicle_check(sc, st, what):
+    """Finite; walls unmoved bit for bit; every rigid marker at x_b + R ξ
+    of the bodies its last outer step moved it to (float32 rounding: 4 eps
+    of the largest coordinate); every granular stress inside the cone;
+    joint violation < 1e-3.  Returns (rigid error, share on the cone,
+    violation)."""
+    t0, t = sc["state"].terrain, st.terrain
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (t.pos, t.vel, t.rho, t.tau_d, t.tau_o, st.bodies.x,
+                 st.bodies.q, st.bodies.v, st.bodies.w)),
+            f"{what}: non-finite state")
+    walls = t0.kind == BOUNDARY
+    require(torch.equal(t.pos[walls], t0.pos[walls])
+            and torch.equal(t.vel[walls], t0.vel[walls]),
+            f"{what}: a wall marker moved")
+    b = sc["seen"]["bodies"]
+    want, _ = fsi_bce.update_rigid_markers(
+        t.pos, t.vel, t.kind, t.body_id, t.bce_local, b.x, b.q, b.v, b.w)
+    rig = t.kind == RIGID_BCE
+    rigid_err = float((t.pos[rig] - want[rig]).abs().max())
+    scale = float(t.pos[rig].abs().max())
+    require(rigid_err <= 4 * EPS32 * scale,
+            f"{what}: a rigid marker is {rigid_err} m off x_b + R xi")
+    gran = t.kind == FLUID
+    excess, on_cone = dp_cone_excess(t.tau_d[gran], t.tau_o[gran],
+                                     sc["soil"])
+    require(float(excess.max()) <= 0.0,
+            f"{what}: {int((excess > 0).sum())} granular stresses outside "
+            "the Drucker-Prager cone")
+    viol = mbs_violation(sc["model"], st.bodies)
+    require(viol < MBS_VIOLATION, f"{what}: joint violation {viol}")
+    return rigid_err, on_cone, viol
+
+
+def vehicle_run(sc, adv, n_intervals, what, state=None, quiet=False):
+    """``n_intervals`` of ``CRM_VEHICLE_OUTER`` outer steps, each checked
+    for overflow and printed as the demo prints it.  Returns (states,
+    wall seconds) by interval."""
+    st = sc["state"] if state is None else state
+    states, walls = [], []
+    for _ in range(n_intervals):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ovf = adv(st, CRM_VEHICLE_OUTER)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ovf = int(ovf)
+        require(ovf == 0, f"{what}: overflow {ovf}")
+        states.append(st)
+        if not quiet:
+            print(f"  {what}: {vehicle_line(sc, st, ovf)[0]}")
+    return states, walls
+
+
+def vehicle_profile(sc, adv, st, what):
+    """One chunk of ``CRM_VEHICLE_REBUILD`` outer steps (one binning)
+    under the profiler, and the multibody step alone (the graph replay
+    and the eager step): ms and kernels an outer step, and the
+    multibody step's share."""
+    n = CRM_VEHICLE_REBUILD
+    wall, events = device_events(lambda: adv(st, n))
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    mbs = MBSStep(sc["model"], sc["params"].dt * sc["params"].rebuild_every,
+                  SolverSettings(solver="direct"))
+    b, t = st.bodies, st.time
+    f = torch.zeros_like(b.x)
+    mbs(b, t, f, f)
+    _, m_events = device_events(lambda: mbs(b, t, f, f))
+    m_busy = sum(e.time_range.elapsed_us() for e in m_events) / 1e3
+    _, e_events = device_events(lambda: mbs.eager(b, t, f, f))
+    out = dict(wall_ms=wall * 1e3 / n, device_ms=busy / n,
+               kernels=len(events) / n, mbs_kernels=len(m_events),
+               mbs_device_ms=m_busy, mbs_eager_kernels=len(e_events))
+    print(f"{what}, one profiled chunk of {n} outer steps: "
+          f"{out['wall_ms']:.4f} ms and {out['kernels']:.1f} kernels an "
+          f"outer step ({out['device_ms']:.4f} ms of device time, idle "
+          f"{1 - busy / (wall * 1e3):.4f} with the profiler on); the "
+          f"multibody step (graph replay) {len(m_events)} kernels, "
+          f"{m_busy:.4f} ms of device time = "
+          f"{m_busy / out['device_ms']:.4f} of an outer step's device time "
+          f"and {len(m_events) / out['kernels']:.4f} of its kernels (eager "
+          f"step {len(e_events)} kernels)")
+    return out
+
+
+def vehicle_engines(card, sc, n_intervals, what, cpu_first=None,
+                    extra=0):
+    """Config #5's vehicle on ``sc`` through the persistent advance with
+    ``whole_outer`` on, then off with dv "last": each engine for
+    ``n_intervals`` intervals (checked at each; the first is the warm-up
+    the RTF leaves out), a profiled chunk, a second run of the first
+    interval bit for bit; the two engines held to each other after the
+    first interval (``fsi_close`` with ``long_run``) and their bodies
+    within 2e-3 after the last; with ``cpu_first``, the first
+    ``CRM_VEHICLE_CPU_OUTER`` outer steps of each against the port's CPU
+    run; ``extra`` more intervals on the first engine with the drive on
+    (the chassis must turn forward).  Returns (launches by kernel,
+    results by engine)."""
+    sim = CRM_VEHICLE_OUTER * sc["params"].dt * sc["params"].rebuild_every
+    launches, res = {}, {}
+    for whole in (True, False):
+        name = "whole_outer" if whole else "per-sweep, dv last"
+        adv = fsi_persistent(sc, DEV, CRM_VEHICLE_REBUILD, "last", whole)
+        crm_reset_launches()
+        states, walls = vehicle_run(sc, adv, n_intervals, f"{what}, {name}")
+        got = crm_launches()
+        n_out = n_intervals * CRM_VEHICLE_OUTER
+        sub = n_out * sc["params"].rebuild_every
+        want = ({"crm_momentum": 0, "crm_gradv_stress": 0,
+                 "crm_outer": n_out} if whole else
+                {"crm_momentum": sub, "crm_gradv_stress": sub,
+                 "crm_outer": 0})
+        require(got == want, f"{what}, {name}: launch counts {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rigid, on_cone, viol = vehicle_check(sc, states[-1],
+                                             f"{what}, {name}")
+        rtf = sum(walls[1:]) / (sim * (n_intervals - 1))
+        ms = sum(walls[1:]) / ((n_intervals - 1) * CRM_VEHICLE_OUTER) * 1e3
+        _, rut = vehicle_line(sc, states[-1], 0)
+        require(rut < R_WHEEL * 1000, f"{what}: rut {rut} mm")
+        print(f"{what}, {name}: steady-state RTF = {rtf:.4f} ({ms:.4f} ms "
+              f"an outer step; first interval {walls[0]:.3f} s left out) on "
+              f"{card}; launches {got}; finite, walls unmoved, rigid markers "
+              f"at x_b + R xi within {rigid:.3e} m, every granular stress "
+              f"inside the cone ({on_cone:.4f} on it), joint violation "
+              f"{viol:.3e}, rut {rut:.2f} mm (< {R_WHEEL * 1000:.0f})")
+        again, _ = vehicle_run(sc, adv, 1, f"{what}, {name}, again",
+                               quiet=True)
+        require(fsi_equal(again[0], states[0]),
+                f"{what}, {name}: two runs differ")
+        prof = vehicle_profile(sc, adv, states[-1], f"{what}, {name}")
+        res[name] = dict(states=states, rtf=rtf, ms=ms, prof=prof,
+                         adv=adv)
+    a, b = (res[k]["states"] for k in res)
+    r_eng = fsi_close(a[0], b[0], f"{what}: whole_outer vs per-sweep",
+                      long_run=True)
+    v_err = float((a[0].bodies.v - b[0].bodies.v).abs().max())
+    dx = float((a[-1].bodies.x - b[-1].bodies.x).abs().max())
+    require(dx < FSI_STALE_DX,
+            f"{what}: whole_outer vs per-sweep, bodies |dx| {dx}")
+    print(f"{what}: whole_outer vs per-sweep after the first interval "
+          f"{r_eng:.3f} of the tolerance (as against the CPU; bodies' max "
+          f"|Δv| {v_err:.3e} m/s), after {n_intervals} "
+          f"intervals bodies |dx| {dx:.3e} (< {FSI_STALE_DX}); bit for bit "
+          f"on a second run of the first interval, both engines")
+    if cpu_first is not None:
+        for name, r in res.items():
+            got, ovf = r["adv"](sc["state"], CRM_VEHICLE_CPU_OUTER)
+            require(int(ovf) == 0, f"{what}, {name}: overflow")
+            ratio = fsi_close(got, cpu_first,
+                              f"{what}, {name}, first interval vs CPU",
+                              long_run=True)
+            w_err = float((got.bodies.w.cpu() - cpu_first.bodies.w).abs()
+                          .max())
+            print(f"{what}, {name}: the first {CRM_VEHICLE_CPU_OUTER} outer "
+                  f"steps against the port on the CPU, {ratio:.3f} of the "
+                  f"tolerance (positions the North star's, velocities "
+                  f"VEHICLE_V_TOL / VEHICLE_W_TOL, the terrain's v as "
+                  f"phase 5 holds 3 cycles; max |Δω| {w_err:.3e} rad/s)")
+    if extra:
+        first = res["whole_outer"]
+        x0 = float(sc["state"].bodies.x[sc["chassis"], 0])
+        states, _ = vehicle_run(sc, first["adv"], extra,
+                                f"{what}, whole_outer, driven",
+                                state=first["states"][-1])
+        rigid, on_cone, viol = vehicle_check(sc, states[-1],
+                                             f"{what}, driven")
+        xs = [float(st.bodies.x[sc["chassis"], 0]) for st in states]
+        vx = float(states[-1].bodies.v[sc["chassis"], 0])
+        _, rut = vehicle_line(sc, states[-1], 0)
+        require(xs[-1] > min(xs) and vx > 0 and rut < R_WHEEL * 1000,
+                f"{what}: chassis x {x0} -> min {min(xs)} -> {xs[-1]}, "
+                f"v {vx}, rut {rut} mm")
+        print(f"{what}, driven to t = {float(states[-1].time):.3f} s: the "
+              f"chassis, rolled back to x = {min(xs):.4f} m while "
+              f"settling (start {x0:.4f}), moved {xs[-1] - min(xs):.4e} m "
+              f"forward to {xs[-1]:.4f} at {vx:.4f} m/s; rut {rut:.2f} mm, "
+              f"joint violation {viol:.3e}, every check as above")
+    return launches, res
+
+
+def vehicle_main_path(card):
+    """Phase 13: (a) the single-wheel mini bed, card against CPU; (b)
+    config #5 as ``bench_crm`` builds it; (c) the same vehicle on phase 6's
+    10 × 4 × 0.2 m lane at d0 = 0.02.  Returns the phase's launches by
+    kernel."""
+    t0 = time.perf_counter()
+    fsi_wheel_parity()
+    print(f"phase 13 (a) took {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    sc = crm_vehicle_scene()
+    t = sc["state"].terrain
+    print(f"config #5 (bench_crm): {t.n} markers ("
+          f"{int((t.kind == FLUID).sum())} granular, "
+          f"{int((t.kind == BOUNDARY).sum())} wall, {sc['n_rigid']} on the "
+          f"wheels), {sc['model'].n_bodies} bodies, grid {sc['grid'].dims}, "
+          f"dt {sc['params'].dt}, {sc['params'].rebuild_every} substeps an "
+          f"outer step, rebuild_outer {CRM_VEHICLE_REBUILD}, C "
+          f"{CRM_VEHICLE_C}")
+    cpu = crm_vehicle_scene(device="cpu")
+    t1 = time.perf_counter()
+    cpu_first, ovf = fsi_persistent(cpu, torch.device("cpu"),
+                                    CRM_VEHICLE_REBUILD, "last", False)(
+        cpu["state"], CRM_VEHICLE_CPU_OUTER)
+    require(int(ovf) == 0, "config #5 on the CPU: overflow")
+    print(f"config #5, {CRM_VEHICLE_CPU_OUTER} outer steps on the CPU (the "
+          f"twins): "
+          f"{time.perf_counter() - t1:.2f} s")
+    launches, _ = vehicle_engines(card, sc, CRM_VEHICLE_INTERVALS,
+                                  "config #5", cpu_first=cpu_first,
+                                  extra=CRM_VEHICLE_DRIVEN)
+    print(f"phase 13 (b) took {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    lane = crm_vehicle_scene(size=(10.0, 4.0), depth=0.2, d0=0.02,
+                             margin=6.0)
+    t = lane["state"].terrain
+    print(f"vehicle on the lane: {t.n} markers "
+          f"({int((t.kind == FLUID).sum())} granular, "
+          f"{int((t.kind == BOUNDARY).sum())} wall, {lane['n_rigid']} on the "
+          f"wheels), grid {lane['grid'].dims}")
+    more, _ = vehicle_engines(card, lane, 3, "lane")
+    for k, v in more.items():
+        launches[k] += v
+    print(f"phase 13 (c) took {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3758,6 +4429,17 @@ def main():
     t0 = time.perf_counter()
     general_mixer_main_path(card)
     print(f"phase 12 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 13: the vehicle on CRM terrain (config #5 as bench_crm builds
+    # it), on the CRM kernels of phase 6
+    t0 = time.perf_counter()
+    vehicle = vehicle_main_path(card)
+    for row in kernels:
+        if row["name"] in vehicle:
+            row["launches_by_phase"] = {"6": row["launches"],
+                                        "13": vehicle[row["name"]]}
+            row["launches"] += vehicle[row["name"]]
+    print(f"phase 13 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,12 @@ and ``nsc_step`` for spheres, boxes and triangle meshes; ``physics.smc``
 penalty contact and ``smc_step``; the VI and Krylov solvers of
 ``solver.vi`` and ``solver.krylov`` with the cone projector), also plain
 tensor code, whose solvers read their loop tests on the host and run
-eagerly.  Its builder puts the model on the card unless the caller passes
-``device="cpu"``; convex collision shapes and shafts are refused.
+eagerly; the vehicle on CRM terrain, config #5 (``fsi.crm_terrain``:
+rigid BCE markers, ``crm_fsi_step``, ``make_crm_fsi_advance_fn`` with the
+active domains of ``fsi.active``, ``make_crm_fsi_advance_persistent``;
+``fsi.bce``'s rigid-body pieces; ``vehicle.suspension``'s templates), on
+the CRM kernels with the multibody step replayed as a CUDA graph.  Its
+builder puts the model on the card unless the caller passes
+``device="cpu"``; convex collision shapes, shafts, flexible BCE markers
+and the CRM gather backend are refused.
 """

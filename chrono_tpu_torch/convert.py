@@ -2,7 +2,8 @@
 
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``DEMBoundaries``
 (planes, cylinders, spheres, cones, wheels) / ``GridSpec`` / ``SPHParams`` /
-``SPHState`` / ``CRMParams`` / ``CRMState`` / ``NSCPencilParams`` and the
+``SPHState`` / ``CRMParams`` / ``CRMState`` / ``CRMFSIState`` /
+``ActiveDomainSpec`` / ``NSCPencilParams`` and the
 multibody ``Model`` / ``BodyState``, the contact pipeline's
 ``CollisionModel`` / ``Contacts`` and ``SMCParams`` as pytrees of arrays and
 static fields.
@@ -28,6 +29,8 @@ from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.fsi.active import ActiveDomainSpec
+from chrono_tpu_torch.fsi.crm_terrain import CRMFSIState
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
@@ -154,6 +157,30 @@ def crm_state_from_numpy(leaves: Mapping[str, Any], *, device) -> CRMState:
         kind=t("kind", torch.int32), body_id=t("body_id", torch.int32))
 
 
+def crm_fsi_state_from_numpy(leaves: Mapping[str, Any], *, device):
+    """``fsi.crm_terrain.CRMFSIState`` on ``device`` from the JAX
+    ``CRMFSIState`` fields: ``bodies`` as for :func:`body_state_from_numpy`,
+    ``terrain`` as for :func:`crm_state_from_numpy` (with ``kind``,
+    ``body_id`` and ``bce_local`` of its rigid markers), ``time``."""
+    return CRMFSIState(
+        bodies=body_state_from_numpy(leaves["bodies"], device=device),
+        terrain=crm_state_from_numpy(leaves["terrain"], device=device),
+        time=torch.as_tensor(np.array(leaves["time"], np.float32),
+                             device=device))
+
+
+def active_spec_from_numpy(leaves: Mapping[str, Any], *, device):
+    """``fsi.active.ActiveDomainSpec`` on ``device`` from the JAX
+    ``ActiveDomainSpec`` fields (``box``, ``margin``; ``capacity`` as a
+    plain int)."""
+    def t(name):
+        return torch.as_tensor(np.array(leaves[name], np.float32),
+                               device=device)
+
+    return ActiveDomainSpec(box=t("box"), margin=t("margin"),
+                            capacity=int(leaves["capacity"]))
+
+
 def nsc_params_from_numpy(leaves: Mapping[str, Any]) -> NSCPencilParams:
     """``NSCPencilParams`` from the JAX ``NSCPencilParams`` fields."""
     floats = ("radius", "mass", "mu", "dt", "envelope", "stab_factor",
@@ -168,7 +195,7 @@ def nsc_params_from_numpy(leaves: Mapping[str, Any]) -> NSCPencilParams:
            if k in leaves})
 
 
-def motion_function_from_numpy(leaves: Mapping[str, Any], *, device=None
+def motion_function_from_numpy(leaves: Mapping[str, Any], *, device
                                ) -> F.MotionFunction:
     """A ``core.functions`` MotionFunction from ``{"class": name, field:
     value, …}``: arrays become float32 tensors on ``device``, a nested

@@ -70,7 +70,9 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
                     capacity: int = 16, *, device):
     """The CRM engine on ``device``: a dict with
 
-      bin(st) → (feat (17, N), order, cells, overflow)
+      bin(st) → (feat (17, N), order, cells, overflow); bin(st, extras)
+          with extras (E, N) per-marker aux rows also returns them sorted
+          through the same ``order``, (E, N), last
       substep(feat, cells, lists=None) → feat   one substep, sweeps M and G
       substep_acc(feat, cells, lists=None) → (feat, acc)  acc (3, N): sweep
           M's acceleration of every valid marker at the pre-substep state
@@ -98,8 +100,12 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
     if capacity < 1:
         raise ValueError("capacity must be at least 1")
 
-    def bin_all(st: CRMState):
-        return crm_state_to_cells(grid, capacity, st.to(device))
+    def bin_all(st: CRMState, extras: torch.Tensor | None = None):
+        binned = crm_state_to_cells(grid, capacity, st.to(device))
+        if extras is None:
+            return binned
+        # the aux rows ride the same sort as the planes
+        return binned + (extras.to(device)[:, binned[1]].contiguous(),)
 
     def substep(feat, cells, acc=None, lists=None):
         out, mv = torch.empty_like(feat), feat.new_empty((N_MV,

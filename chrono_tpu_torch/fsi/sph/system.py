@@ -1,7 +1,8 @@
 """SPH fluid system: state assembly and time-step bounds.
 
 Counterpart of part of ``chrono_tpu/fsi/sph/system.py``: ``make_sph_state``
-(fluid and fixed-boundary markers), ``suggest_sph_dt`` and ``runtime_dt``.
+(fluid, fixed-boundary and rigid-body BCE markers), ``suggest_sph_dt`` and
+``runtime_dt``.
 The gather backend's advance (``make_sph_advance_fn``) is not ported; the
 dam break runs on ``fsi.sph.pencil.make_sph_advance_pencil``.
 """
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from chrono_tpu_torch.fsi.sph.state import (
-    BOUNDARY, FLUID, SPHParams, SPHState,
+    BOUNDARY, FLUID, RIGID_BCE, SPHParams, SPHState,
 )
 
 
@@ -36,19 +37,31 @@ def make_sph_state(params: SPHParams, fluid_pts, boundary_pts=None,
                    rigid_pts=None, rigid_body_ids=None, rigid_local=None,
                    fluid_vel=None, flex_pts=None, dtype=torch.float32, *,
                    device) -> SPHState:
-    """Assemble the marker population: fluid, then fixed walls.  Rigid and
-    flexible BCE markers are not ported and raise."""
-    if rigid_pts is not None and len(rigid_pts):
-        raise NotImplementedError("rigid-body BCE markers are not ported")
+    """Assemble the marker population in the JAX package's order: fluid,
+    fixed walls, then rigid-body BCE markers (``rigid_pts`` in the world,
+    with their body index ``rigid_body_ids`` and body-local offset
+    ``rigid_local``).  Flexible BCE markers wait for FEA (ROADMAP Queue 1
+    item 8) and raise."""
     if flex_pts is not None and len(flex_pts):
-        raise NotImplementedError("flexible BCE markers are not ported")
+        raise NotImplementedError(
+            "flexible BCE markers are not ported: they wait for FEA "
+            "(ROADMAP Queue 1 item 8)")
     fluid_pts = np.asarray(fluid_pts, float)
-    chunks = [fluid_pts]
-    kinds = [np.full(len(fluid_pts), FLUID)]
+    chunks, kinds = [fluid_pts], [np.full(len(fluid_pts), FLUID)]
+    bodies = [np.full(len(fluid_pts), -1)]
+    locals_ = [np.zeros((len(fluid_pts), 3))]
     if boundary_pts is not None and len(boundary_pts):
         boundary_pts = np.asarray(boundary_pts, float)
         chunks.append(boundary_pts)
         kinds.append(np.full(len(boundary_pts), BOUNDARY))
+        bodies.append(np.full(len(boundary_pts), -1))
+        locals_.append(np.zeros((len(boundary_pts), 3)))
+    if rigid_pts is not None and len(rigid_pts):
+        rigid_pts = np.asarray(rigid_pts, float)
+        chunks.append(rigid_pts)
+        kinds.append(np.full(len(rigid_pts), RIGID_BCE))
+        bodies.append(np.asarray(rigid_body_ids, int))
+        locals_.append(np.asarray(rigid_local, float))
     pos = np.concatenate(chunks)
     n = len(pos)
     vel = np.zeros((n, 3))
@@ -62,8 +75,8 @@ def make_sph_state(params: SPHParams, fluid_pts, boundary_pts=None,
         pos=t(pos), vel=t(vel),
         rho=torch.full((n,), float(params.rho0), dtype=dtype, device=device),
         kind=t(np.concatenate(kinds), torch.int32),
-        body_id=torch.full((n,), -1, dtype=torch.int32, device=device),
-        bce_local=torch.zeros((n, 3), dtype=dtype, device=device),
+        body_id=t(np.concatenate(bodies), torch.int32),
+        bce_local=t(np.concatenate(locals_)),
         time=torch.zeros((), dtype=dtype, device=device))
 
 

@@ -391,10 +391,7 @@ def _launch(name, inputs, cells: SortedCells, out, out_rows,
     check_cells(cells, dev, N_STATE)
     extra = ()
     if order is not None:
-        if (order.dtype != torch.int32 or not order.is_contiguous()
-                or tuple(order.shape) != (n,) or order.device != dev):
-            raise ValueError(f"order must be contiguous int32 ({n},) on "
-                             f"{dev}")
+        check_walk_order(order, n, dev)
         if overlaps(order, out):
             raise ValueError(f"{name} runs out of place (order is out)")
         extra = (order.data_ptr(),)
@@ -405,6 +402,26 @@ def _launch(name, inputs, cells: SortedCells, out, out_rows,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check_walk_order(order: torch.Tensor, n: int, device) -> None:
+    """Raise unless ``order`` is a contiguous int32 (n,) tensor on
+    ``device`` holding each of 0 … n − 1 once: a thread order that leaves
+    no column of sweep A's output unwritten.  The permutation test sorts
+    and reads the result on the host, once per tensor and in-place change
+    (the result is kept on the tensor, keyed by its version counter): a
+    walk order is made once a binning and handed to every substep."""
+    if (order.dtype != torch.int32 or not order.is_contiguous()
+            or tuple(order.shape) != (n,) or order.device != device):
+        raise ValueError(f"order must be contiguous int32 ({n},) on "
+                         f"{device}")
+    if getattr(order, "_permutation_of", None) == (n, order._version):
+        return
+    if not torch.equal(torch.sort(order).values,
+                       torch.arange(n, dtype=torch.int32, device=device)):
+        raise ValueError(f"order must hold each of the {n} binned markers "
+                         "once (a permutation, as adami_walk_order makes)")
+    order._permutation_of = (n, order._version)
 
 
 def adami_walk_order(state: torch.Tensor,
@@ -424,12 +441,15 @@ def sph_adami(state: torch.Tensor, cells: SortedCells, c: SPHConsts,
               out: torch.Tensor, order: torch.Tensor | None = None) -> None:
     """Sweep A: out (7, N) ← the Adami planes of the (10, N) state.
 
-    ``order`` must be :func:`adami_walk_order` of this binning (any
-    state of it: markers never change kind); it is not checked beyond its
-    type and shape, and a marker missing from it keeps its column of
-    ``out`` unwritten.  Without ``order`` (a convenience for a single call,
-    as in the tests) it is made here, a sort on every call.  A CUDA tensor
-    launches the kernel; a CPU tensor runs the twin."""
+    ``order`` should be :func:`adami_walk_order` of this binning (any
+    state of it: markers never change kind), which puts the walking
+    threads first; it must be a permutation of the binned markers
+    (:func:`check_walk_order`, on every device), so that no column of
+    ``out`` is left unwritten.  Without ``order`` (a convenience for a
+    single call, as in the tests) it is made here, a sort on every call.
+    A CUDA tensor launches the kernel; a CPU tensor runs the twin."""
+    if order is not None:
+        check_walk_order(order, state.shape[1], state.device)
     if state.device.type == "cuda":
         if order is None:
             order = adami_walk_order(state, cells)

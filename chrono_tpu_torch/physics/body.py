@@ -44,8 +44,16 @@ class BodyProps:
 
 def make_body_state(x, q=None, v=None, w=None, dtype=torch.float32,
                     device=None) -> BodyState:
+    """A ``BodyState`` on ``device``: the CUDA card unless the caller
+    passes another (``device="cpu"``); without a card the default raises,
+    as ``SystemBuilder`` does, and never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_body_state builds on the CUDA card by default and none is "
+            "available; pass device='cpu' to build on the CPU")
     x = torch.as_tensor(x, dtype=dtype, device=device)
-    n, device = x.shape[0], x.device
+    n = x.shape[0]
 
     def vec(a, width):
         if a is None:

@@ -245,11 +245,18 @@ def test_terrain_state_matches_jax(shape):
                                rtol=1e-6, atol=1e-3)
     assert tgrid == GridSpec(origin=tuple(grid.origin),
                              cell_size=grid.cell_size, dims=tuple(grid.dims))
-    with pytest.raises(NotImplementedError):
-        make_crm_terrain_state(tp, tc, (0.4, 0.2), 0.1, device="cpu",
-                               rigid_pts=np.zeros((4, 3)),
-                               rigid_body_ids=[0] * 4,
-                               rigid_local=np.zeros((4, 3)))
+    # rigid-body BCE markers follow the walls, with their bodies and local
+    # offsets, as in the JAX state
+    rigid = dict(rigid_pts=np.full((4, 3), 0.05), rigid_body_ids=[0] * 4,
+                 rigid_local=np.eye(4, 3))
+    ref, _ = j_make_crm_terrain_state(params, crm, (0.4, 0.2), 0.1, **kw,
+                                      **rigid)
+    got, _ = make_crm_terrain_state(tp, tc, (0.4, 0.2), 0.1, device="cpu",
+                                    **kw, **rigid)
+    for f in ("pos", "kind", "body_id", "bce_local"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), f)
+    assert got.kind[-4:].tolist() == [2] * 4
 
 
 # ---------------------------------------------------------------- (c)

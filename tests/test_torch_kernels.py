@@ -808,6 +808,65 @@ def test_sph_adami_order_checks(card):
     assert torch.equal(adami, again)
 
 
+def test_sph_adami_refuses_an_order_that_is_not_a_permutation():
+    """On every device A refuses a thread order that misses a binned marker
+    (one index twice), which would leave that marker's column of its
+    output unwritten on the card; the walk order itself is accepted, and
+    its check is kept on the tensor until the tensor changes."""
+    feat, cells, c = _mini_dam_cells("cpu")
+    n = feat.shape[1]
+    adami = feat.new_empty((sph.N_ADAMI, n))
+    order = sph.adami_walk_order(feat, cells)
+    sph.sph_adami(feat, cells, c, adami, order)
+    assert order._permutation_of == (n, order._version)
+    bad = order.clone()
+    bad[-1] = bad[0]
+    with pytest.raises(ValueError, match="permutation"):
+        sph.sph_adami(feat, cells, c, adami, bad)
+    order[-1] = order[0]                # an in-place change is checked again
+    with pytest.raises(ValueError, match="permutation"):
+        sph.sph_adami(feat, cells, c, adami, order)
+
+
+def _persistent_reduction(dev):
+    """The persistent vehicle path's reduction (``body_forces_planes``) on
+    the single-wheel mini bed after one binning with the aux rows and one
+    forces-only M sweep: (force, torque) of the wheel, twice."""
+    from chip_smoke import crm_wheel_scene
+    from chrono_tpu_torch.fsi.crm_terrain import (
+        bce_extras, body_forces_planes, rigid_slots,
+    )
+    from chrono_tpu_torch.fsi.sph.crm_pencil import make_crm_engine
+
+    scene = crm_wheel_scene(device=dev)
+    params, soil, grid = scene["params"], scene["soil"], scene["grid"]
+    terrain, bodies = scene["state"].terrain, scene["state"].bodies
+    eng = make_crm_engine(params, soil, grid, 32, device=dev)
+    feat, _, cells, ovf, aux = eng["bin"](terrain, bce_extras(terrain))
+    assert int(ovf) == 0
+    is_wheel = torch.ones(bodies.n, dtype=torch.bool, device=dev)
+    rs = rigid_slots(aux, is_wheel, scene["n_rigid"])
+    acc = eng["forces"](feat, cells)
+    return [body_forces_planes(params, feat, acc, rs, bodies)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+def test_persistent_reduction_is_deterministic_on_the_card(card):
+    """The wheel's force and torque from the sorted planes: two reductions
+    on the card equal bit for bit, and equal the CPU's (the twins) within
+    float32 rounding of the pair sums (1e-4 relative, 1e-4 of the
+    largest component)."""
+    (f1, t1), (f2, t2) = _persistent_reduction("cuda")
+    assert torch.equal(f1, f2) and torch.equal(t1, t2)
+    (fc, tc), _ = _persistent_reduction("cpu")
+    for got, ref in ((f1, fc), (t1, tc)):
+        ref = ref.numpy()
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max())
+
+
 @pytest.mark.cuda
 def test_side_plan_sums_are_deterministic_on_the_card(card):
     """The contact solve's ``Dᵀγ`` (``descriptor.apply_DT_sorted``) at the

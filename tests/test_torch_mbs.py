@@ -292,6 +292,22 @@ def test_builder_device():
     assert TBuilder(device="cpu").device.type == "cpu"
 
 
+def test_make_body_state_device():
+    """``make_body_state`` defaults to the card as the builder does, and
+    never falls back to the CPU; ``device="cpu"`` builds there."""
+    from chrono_tpu_torch.physics.body import make_body_state
+
+    if torch.cuda.is_available():
+        assert make_body_state([[1.0, 2.0, 3.0]]).x.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_body_state([[1.0, 2.0, 3.0]])
+    st = make_body_state([[1.0, 2.0, 3.0]], device="cpu")
+    assert st.x.device.type == "cpu" and st.q.tolist() == [[1, 0, 0, 0]]
+    with pytest.raises(TypeError):                 # device is required
+        convert.motion_function_from_numpy({"class": "FConst", "c": 1.0})
+
+
 # ------------------------------------------------------------- the solve
 
 def _free_velocities(js, seed):

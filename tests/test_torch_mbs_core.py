@@ -194,7 +194,8 @@ def function_refs():
 @pytest.mark.parametrize("name", sorted(_functions()))
 def test_motion_function(name, function_refs):
     fns, refs = function_refs
-    port = convert.motion_function_from_numpy(leaves(fns[name]))
+    port = convert.motion_function_from_numpy(leaves(fns[name]),
+                                              device="cpu")
     assert type(port).__name__ == name
     for m, ref in zip(("value", "deriv", "deriv2"), refs[name]):
         got = torch.stack([torch.as_tensor(getattr(port, m)(
@@ -267,7 +268,7 @@ def _jax_motor(sc, kind):
 def _port_motor(sc, kind):
     prof = convert.motion_function_from_numpy(
         leaves(jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
-                                      *MOTOR_PROFILES[kind])))
+                                      *MOTOR_PROFILES[kind])), device="cpu")
     return tmotors.MotorData(**{k: torch.as_tensor(v) for k, v in
                                 sc["motor"].items()}, profile=prof)
 

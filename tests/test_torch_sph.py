@@ -124,8 +124,19 @@ def test_make_state_and_dt_match_jax():
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)))
     assert got.kind.dtype == torch.int32 and got.pos.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        t_system.make_sph_state(tp, fluid, rigid_pts=wall, device="cpu")
+    # rigid-body BCE markers after the walls, with their bodies and local
+    # offsets; flexible ones wait for FEA and are refused
+    rigid = dict(rigid_pts=wall[:6] + 1.0, rigid_body_ids=[0, 0, 1, 1, 1, 2],
+                 rigid_local=wall[:6])
+    ref = make_sph_state(jp, fluid, boundary_pts=wall, **rigid)
+    got = t_system.make_sph_state(tp, fluid, boundary_pts=wall,
+                                  device="cpu", **rigid)
+    for f in ("pos", "kind", "body_id", "bce_local"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)))
+    assert got.kind[-6:].tolist() == [2] * 6
+    with pytest.raises(NotImplementedError, match="item 8"):
+        t_system.make_sph_state(tp, fluid, flex_pts=wall, device="cpu")
 
 
 def test_runtime_dt_matches_jax():
