@@ -34,8 +34,13 @@ eagerly; the vehicle on CRM terrain, config #5 (``fsi.crm_terrain``:
 rigid BCE markers, ``crm_fsi_step``, ``make_crm_fsi_advance_fn`` with the
 active domains of ``fsi.active``, ``make_crm_fsi_advance_persistent``;
 ``fsi.bce``'s rigid-body pieces; ``vehicle.suspension``'s templates), on
-the CRM kernels with the multibody step replayed as a CUDA graph.  Its
-builder puts the model on the card unless the caller passes
-``device="cpu"``; convex collision shapes, shafts, flexible BCE markers
-and the CRM gather backend are refused.
+the CRM kernels with the multibody step replayed as a CUDA graph;
+wheeled vehicles and rovers (``vehicle``: tires, SCM and rigid terrain,
+powertrain, drivers, ``vehicle_step`` and the closed path-following loop
+``closed_loop.run_closed_loop`` replayed as a CUDA graph, the DBP rig;
+``models``: the wheeled decks and the rovers; ``physics.shafts``), plain
+tensor code with no TPU kernel.  Its builders put the model on the card
+unless the caller passes ``device="cpu"``; convex collision shapes,
+tracked vehicles, flexible BCE markers and the CRM gather backend are
+refused.
 """

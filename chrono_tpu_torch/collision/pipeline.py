@@ -29,22 +29,12 @@ from chrono_tpu_torch.collision.cell_list import (
 from chrono_tpu_torch.core import quaternion as Q
 from chrono_tpu_torch.physics.body import BodyState
 from chrono_tpu_torch.physics.constraints import ConstraintRows, concat_rows
+from chrono_tpu_torch.utils.device import resolve_device
 from chrono_tpu_torch.utils.tree import tensor_dataclass
 
 
 def _cross(a: Tensor, b: Tensor) -> Tensor:
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
-
-
-def _device(device):
-    """The card unless the caller asks for another device; never a silent
-    fall back to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "collision shapes are built on the CUDA card by default and none "
-            "is available; pass device='cpu' to build them on the CPU")
-    return device
 
 
 @tensor_dataclass
@@ -115,7 +105,7 @@ class MeshShapes:
     def from_mesh(body: int, verts, faces, mu: float = 0.5, device=None):
         """Build from a (V,3) vertex array + (T,3) face index array, on the
         card unless ``device`` says otherwise."""
-        device = _device(device)
+        device = resolve_device(device, "MeshShapes.from_mesh")
         verts = np.asarray(verts, np.float32)
         faces = np.asarray(faces, np.int32)
         T = faces.shape[0]

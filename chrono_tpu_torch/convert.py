@@ -10,7 +10,10 @@ static fields.
 A caller that holds them flattens each into a mapping of field name → numpy
 array or Python scalar (nested mappings for the two materials, the wall
 kinds, and a model's joints, motors and force elements); these functions
-turn such mappings into the port's objects.  The NSC multiplier maps move γ
+turn such mappings into the port's objects.  The vehicle's carriers (the tires'
+parameters, ``PowertrainParams``, ``WheeledVehicle``, ``SCMParams`` /
+``SCMState``, ``Rover`` and the drivers) come across the same way.  The NSC
+multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
 """
@@ -33,15 +36,22 @@ from chrono_tpu_torch.fsi.active import ActiveDomainSpec
 from chrono_tpu_torch.fsi.crm_terrain import CRMFSIState
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
+from chrono_tpu_torch.models.rover import Rover
 from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
 from chrono_tpu_torch.physics import force_elements as fe
 from chrono_tpu_torch.physics.body import BodyProps, BodyState
 from chrono_tpu_torch.physics.joints import JointData
 from chrono_tpu_torch.physics.motors import MotorData
+from chrono_tpu_torch.physics import shafts as sh
 from chrono_tpu_torch.physics.smc import SMCParams
 from chrono_tpu_torch.physics.system import Model
 from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
 from chrono_tpu_torch.utils.tree import is_static
+from chrono_tpu_torch.vehicle import driver as drv
+from chrono_tpu_torch.vehicle import tire as tr
+from chrono_tpu_torch.vehicle.powertrain import PowertrainParams
+from chrono_tpu_torch.vehicle.terrain import SCMParams, SCMState
+from chrono_tpu_torch.vehicle.wheeled import WheeledVehicle
 
 
 def _scalar(x) -> float:
@@ -244,19 +254,19 @@ def body_state_from_numpy(leaves: Mapping[str, Any], *, device
     return _carrier(BodyState, leaves, device)
 
 
+SHAFT_DATA = {"gear": sh.ShaftGearData, "planetary": sh.ShaftPlanetaryData,
+              "shaft_body": sh.ShaftBodyData}
+
+
 def mbs_model_from_numpy(leaves: Mapping[str, Any], *, device) -> Model:
     """The multibody ``Model`` on ``device`` from the JAX ``Model``'s
     leaves: ``props`` (inv_mass, inertia, inv_inertia), ``gravity``,
     ``joints`` / ``couplers`` / ``motors`` / ``load_motors`` as mappings
     kind → that kind's fields (a motor's ``profile`` as for
     :func:`motion_function_from_numpy`), ``tsda`` / ``rsda`` / ``bushings``
-    as their fields or None.  Shafts are not ported: a model with shaft
-    constraints or shaft elements is refused."""
-    if leaves.get("shaft_constraints") or \
-            leaves.get("shaft_elements") is not None:
-        raise NotImplementedError(
-            "shafts are not ported yet (physics/shafts.py comes in a later "
-            "slice)")
+    as their fields or None, ``shaft_constraints`` as a mapping kind
+    (gear, planetary, shaft_body) → that kind's fields and
+    ``shaft_elements`` as its fields or None."""
 
     def kinds(key, cls):
         return {k: _carrier(cls, v, device)
@@ -274,7 +284,10 @@ def mbs_model_from_numpy(leaves: Mapping[str, Any], *, device) -> Model:
         load_motors=kinds("load_motors", MotorData),
         tsda=optional("tsda", fe.TSDAData),
         rsda=optional("rsda", fe.RSDAData),
-        shaft_constraints={}, shaft_elements=None,
+        shaft_constraints={
+            k: _carrier(SHAFT_DATA[k], v, device)
+            for k, v in (leaves.get("shaft_constraints") or {}).items()},
+        shaft_elements=optional("shaft_elements", sh.ShaftTorqueElements),
         couplers=kinds("couplers", JointData),
         bushings=optional("bushings", fe.BushingData))
 
@@ -392,3 +405,99 @@ def nsc_gamma_from_dense(dense, wdense, partners, cells: SortedCells):
                               slot[o], slot[j]]
     wg = wdense[ijk[:, 0], ijk[:, 1], ijk[:, 2], slot].transpose(2, 0, 1)
     return torch.from_numpy(g), torch.from_numpy(np.ascontiguousarray(wg))
+
+
+# ------------------------------------------------------------- vehicles
+
+TIRE_PARAMS = {"tmeasy": tr.TMeasyParams, "fiala": tr.FialaParams,
+               "pac89": tr.Pac89Params, "pac02": tr.Pac02Params,
+               "tmsimple": tr.TMsimpleParams}
+
+
+def _float_fields(cls, leaves: Mapping[str, Any], device, nested=None,
+                  skip=()):
+    """The constructor arguments of a dataclass of float32 tensors on
+    ``device`` from its numpy leaves (the JAX package keeps numbers as
+    float32 arrays or Python floats); ``nested`` maps a field to the class
+    its mapping builds; static fields keep their Python type (tuples of
+    ints for body indices); fields in ``skip`` are left out."""
+    nested = nested or {}
+    kw = {}
+    for f in fields(cls):
+        if not f.init or f.name not in leaves or f.name in skip:
+            continue
+        v = leaves[f.name]
+        if f.name in nested:
+            kw[f.name] = nested[f.name](**_float_fields(nested[f.name], v,
+                                                        device))
+        elif is_static(f):
+            a = np.asarray(v)
+            kw[f.name] = (tuple(int(i) for i in a.reshape(-1))
+                          if isinstance(f.default, tuple) else int(a))
+        else:
+            kw[f.name] = torch.as_tensor(np.array(v, np.float32),
+                                         device=device)
+    return kw
+
+
+def _float_carrier(cls, leaves: Mapping[str, Any], device, nested=None):
+    return cls(**_float_fields(cls, leaves, device, nested))
+
+
+def tire_params_from_numpy(kind: str, leaves: Mapping[str, Any], *, device):
+    """A tire model's parameters (``kind``: tmeasy, fiala, pac89, pac02,
+    tmsimple) from the JAX parameter class's fields."""
+    return _float_carrier(TIRE_PARAMS[kind], leaves, device)
+
+
+def tmeasy_params_from_numpy(leaves: Mapping[str, Any], *, device):
+    return tire_params_from_numpy("tmeasy", leaves, device=device)
+
+
+def powertrain_params_from_numpy(leaves: Mapping[str, Any], *, device
+                                 ) -> PowertrainParams:
+    return _float_carrier(PowertrainParams, leaves, device)
+
+
+def wheeled_vehicle_from_numpy(leaves: Mapping[str, Any], *, device
+                               ) -> WheeledVehicle:
+    """``WheeledVehicle`` from the JAX one's leaves: ``model`` as for
+    :func:`mbs_model_from_numpy` (shafts included), ``tire`` TMeasy,
+    ``powertrain``, the scalars, and the static ``chassis`` / ``wheels`` /
+    ``knuckles``."""
+    return WheeledVehicle(
+        model=mbs_model_from_numpy(leaves["model"], device=device),
+        tire=tmeasy_params_from_numpy(leaves["tire"], device=device),
+        powertrain=powertrain_params_from_numpy(leaves["powertrain"],
+                                                device=device),
+        **_float_fields(WheeledVehicle, leaves, device,
+                        skip=("model", "tire", "powertrain")))
+
+
+def scm_params_from_numpy(leaves: Mapping[str, Any], *, device
+                          ) -> SCMParams:
+    return _float_carrier(SCMParams, leaves, device)
+
+
+def scm_state_from_numpy(leaves: Mapping[str, Any], *, device) -> SCMState:
+    return _float_carrier(SCMState, leaves, device)
+
+
+def rover_from_numpy(leaves: Mapping[str, Any], *, device):
+    """``models.rover.Rover`` from the JAX one's leaves (``model`` as for
+    :func:`mbs_model_from_numpy`)."""
+    return Rover(model=mbs_model_from_numpy(leaves["model"], device=device),
+                 **_float_fields(Rover, leaves, device, skip=("model",)))
+
+
+DRIVERS = {"SpeedController": drv.SpeedController,
+           "PathFollower": drv.PathFollower, "DataDriver": drv.DataDriver,
+           "HumanDriver": drv.HumanDriver}
+
+
+def driver_from_numpy(name: str, leaves: Mapping[str, Any], *, device):
+    """A controller of ``vehicle.driver`` (``name``: SpeedController,
+    PathFollower, DataDriver, HumanDriver) from the JAX one's fields, its
+    ``PIDState`` as a nested mapping."""
+    return _float_carrier(DRIVERS[name], leaves, device,
+                          nested={"state": drv.PIDState})

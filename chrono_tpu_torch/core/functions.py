@@ -44,10 +44,14 @@ def _polyval(p: Tensor, x) -> Tensor:
     return y
 
 
-def _interp(x, xp: Tensor, fp: Tensor) -> Tensor:
+def interp(x, xp: Tensor, fp: Tensor) -> Tensor:
     """Piecewise-linear interpolation of 1-D knots (``jnp.interp``), held at
-    the end values outside them."""
+    the end values outside them.  The knots are indexed through a 1-D index
+    even for a 0-d ``x`` (indexing by a 0-d tensor may read it on the host,
+    which a CUDA graph cannot hold)."""
     x = _time(x)
+    shape = x.shape
+    x = x.reshape(-1)
     i = torch.clamp(torch.searchsorted(xp, x.detach(), right=True),
                     1, xp.shape[0] - 1)
     df = fp[i] - fp[i - 1]
@@ -60,7 +64,7 @@ def _interp(x, xp: Tensor, fp: Tensor) -> Tensor:
                     fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx),
                                                      dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    return torch.where(x > xp[-1], fp[-1], f).reshape(shape)
 
 
 class MotionFunction:
@@ -161,7 +165,7 @@ class FInterp(MotionFunction):
     def value(self, t):
         t = _time(t)
         if self.ts.ndim == 1:
-            return _interp(t, self.ts, self.ys)
+            return interp(t, self.ts, self.ys)
         t0, t1, y0, y1 = self._seg(t)
         s = torch.clamp((t - t0) / torch.clamp_min(t1 - t0, 1e-12), 0.0, 1.0)
         return y0 + s * (y1 - y0)
@@ -333,7 +337,7 @@ class FIntegral(MotionFunction):
         cum = torch.cat([
             torch.zeros((1,), dtype=ys.dtype, device=ys.device),
             torch.cumsum(0.5 * (ys[1:] + ys[:-1]) * torch.diff(ts), dim=0)])
-        return self.c0 + _interp(t, ts, cum)
+        return self.c0 + interp(t, ts, cum)
 
 
 @tensor_dataclass

@@ -1,5 +1,5 @@
-"""The multibody core: bodies, joints, motors, force elements, the system
-model and its stepper, the scene builder, and SMC penalty contact."""
+"""The multibody core: bodies, joints, motors, force elements, shafts, the
+system model and its stepper, the scene builder, and SMC penalty contact."""
 
 from chrono_tpu_torch.physics.body import (
     BodyProps, BodyState, kinetic_energy, make_body_state,

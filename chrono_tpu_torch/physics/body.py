@@ -16,6 +16,7 @@ import torch
 from torch import Tensor
 
 from chrono_tpu_torch.core import quaternion as Q
+from chrono_tpu_torch.utils.device import resolve_device
 from chrono_tpu_torch.utils.tree import tensor_dataclass
 
 
@@ -47,11 +48,7 @@ def make_body_state(x, q=None, v=None, w=None, dtype=torch.float32,
     """A ``BodyState`` on ``device``: the CUDA card unless the caller
     passes another (``device="cpu"``); without a card the default raises,
     as ``SystemBuilder`` does, and never falls back to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_body_state builds on the CUDA card by default and none is "
-            "available; pass device='cpu' to build on the CPU")
+    device = resolve_device(device, "make_body_state")
     x = torch.as_tensor(x, dtype=dtype, device=device)
     n = x.shape[0]
 

@@ -25,7 +25,11 @@ from chrono_tpu_torch.physics.force_elements import (
 )
 from chrono_tpu_torch.physics.joints import JOINT_TYPES, JointData
 from chrono_tpu_torch.physics.motors import MotorData
+from chrono_tpu_torch.physics.shafts import (
+    ShaftBodyData, ShaftGearData, ShaftPlanetaryData, ShaftTorqueElements,
+)
 from chrono_tpu_torch.physics.system import Model
+from chrono_tpu_torch.utils.device import resolve_device
 from chrono_tpu_torch.utils.tree import is_static
 
 
@@ -37,11 +41,6 @@ def _as4(v):
     if v is None:
         return np.array([1.0, 0.0, 0.0, 0.0])
     return np.asarray(v, dtype=np.float64).reshape(4)
-
-
-def _no_shafts(*_, **__):
-    raise NotImplementedError(
-        "shafts are not ported yet (physics/shafts.py comes in a later slice)")
 
 
 def _stack_profiles(profiles, dtype, device):
@@ -80,19 +79,16 @@ class SystemBuilder:
     """
 
     def __init__(self, dtype=torch.float32, device=None):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SystemBuilder builds on the CUDA card by default and none "
-                "is available; pass device='cpu' to build on the CPU")
         self.dtype = dtype
-        self.device = device
+        self.device = resolve_device(device, "SystemBuilder")
         self._bodies = []       # dicts
         self._joints = {}       # kind -> list of dicts
         self._motors = {}       # kind -> list of dicts
         self._load_motors = {}
         self._tsda = []
         self._rsda = []
+        self._shaft_cons = {}   # kind -> list of dicts
+        self._shaft_elems = []  # clutch/spring/torque elements
         self._couplers = {}     # kind -> list of dicts (gear/pulley/rack/screw)
         self._bushings = []
         self.gravity = np.array([0.0, 0.0, -9.81])
@@ -113,11 +109,50 @@ class SystemBuilder:
     def add_ground(self, name="ground") -> int:
         return self.add_body(fixed=True, name=name)
 
-    # ---------------- shafts (1-D drivetrain): a later slice ----------------
+    # ---------------- shafts (1-D drivetrain) ----------------
 
-    add_shaft = add_shaft_gear = add_shaft_planetary = add_shaft_body = \
-        add_shaft_clutch = add_shaft_torsion_spring = add_shaft_torque = \
-        staticmethod(_no_shafts)
+    def add_shaft(self, inertia=1.0, speed=0.0, name=None) -> int:
+        """1-DOF rotational inertia (reference ChShaft): a body whose only
+        live DOF is spin about its local z axis."""
+        idx = self.add_body(mass=0.0, inertia=(1.0, 1.0, float(inertia)),
+                            omega_local=(0.0, 0.0, float(speed)), name=name)
+        self._bodies[idx]["shaft"] = True
+        return idx
+
+    def add_shaft_gear(self, shaft_a, shaft_b, ratio):
+        """ω_a = ratio · ω_b (ChShaftsGear)."""
+        self._shaft_cons.setdefault("gear", []).append(
+            dict(a=shaft_a, b=shaft_b, ratio=float(ratio)))
+
+    def add_shaft_planetary(self, carrier, sun, ring, ratio):
+        """Willis equation with ring/sun ratio ψ = z_ring/z_sun:
+        (1+ψ) ω_c − ω_s − ψ ω_r = 0 (ChShaftsPlanetary)."""
+        psi = float(ratio)
+        self._shaft_cons.setdefault("planetary", []).append(
+            dict(c=carrier, s=sun, r=ring, cc=1.0 + psi, cs=-1.0, cr=-psi))
+
+    def add_shaft_body(self, shaft, body, axis_local=(0, 0, 1)):
+        """Lock a shaft's spin to a body's angular velocity about a
+        body-local axis (ChShaftsBody)."""
+        self._shaft_cons.setdefault("shaft_body", []).append(
+            dict(a=shaft, b=body, axis=_as3(axis_local)))
+
+    def add_shaft_clutch(self, shaft_a, shaft_b, torque_max, c_slip=50.0,
+                         engagement=1.0):
+        self._shaft_elems.append(dict(a=shaft_a, b=shaft_b, kind=0,
+                                      k=float(c_slip), c=float(torque_max),
+                                      rest=float(engagement)))
+
+    def add_shaft_torsion_spring(self, shaft_a, shaft_b, k, c=0.0,
+                                 rest_angle=0.0):
+        self._shaft_elems.append(dict(a=shaft_a, b=shaft_b, kind=1,
+                                      k=float(k), c=float(c),
+                                      rest=float(rest_angle)))
+
+    def add_shaft_torque(self, shaft_a, shaft_b, torque):
+        """Constant applied torque pair (+τ on a, −τ on b)."""
+        self._shaft_elems.append(dict(a=shaft_a, b=shaft_b, kind=2,
+                                      k=float(torque), c=0.0, rest=0.0))
 
     def set_gravity(self, g):
         self.gravity = _as3(g)
@@ -385,6 +420,15 @@ class SystemBuilder:
         inv_inertia = torch.where(
             inv_mass[:, None] > 0, 1.0 / torch.clamp_min(inertia, 1e-30),
             torch.zeros_like(inertia))
+        # shafts: translation fixed, the spin about local z live
+        shaft_mask = np.asarray([b.get("shaft", False) for b in bodies])
+        if shaft_mask.any():
+            shaft_inv = np.zeros((nb, 3))
+            shaft_inv[:, 2] = 1.0 / np.maximum(
+                np.asarray([b["inertia"][2] for b in bodies]), 1e-30)
+            inv_inertia = torch.where(
+                self._tensor(shaft_mask, torch.bool)[:, None],
+                self._tensor(shaft_inv), inv_inertia)
         props = BodyProps(inv_mass=inv_mass, inertia=inertia,
                           inv_inertia=inv_inertia)
         state = BodyState(x=self._stack(bodies, "pos"),
@@ -419,6 +463,34 @@ class SystemBuilder:
                 k_t=self._stack(e, "k_t"), c_t=self._stack(e, "c_t"),
                 k_r=self._stack(e, "k_r"), c_r=self._stack(e, "c_r"))
 
+        shaft_cons = {}
+        for kind, items in self._shaft_cons.items():
+            if kind == "gear":
+                shaft_cons[kind] = ShaftGearData(
+                    shaft_a=self._index(items, "a"),
+                    shaft_b=self._index(items, "b"),
+                    ratio=self._stack(items, "ratio"))
+            elif kind == "planetary":
+                shaft_cons[kind] = ShaftPlanetaryData(
+                    carrier=self._index(items, "c"),
+                    sun=self._index(items, "s"),
+                    ring=self._index(items, "r"),
+                    c_carrier=self._stack(items, "cc"),
+                    c_sun=self._stack(items, "cs"),
+                    c_ring=self._stack(items, "cr"))
+            else:
+                shaft_cons[kind] = ShaftBodyData(
+                    shaft=self._index(items, "a"),
+                    body=self._index(items, "b"),
+                    axis_local=self._stack(items, "axis"))
+        shaft_elems = None
+        if self._shaft_elems:
+            e = self._shaft_elems
+            shaft_elems = ShaftTorqueElements(
+                shaft_a=self._index(e, "a"), shaft_b=self._index(e, "b"),
+                kind=self._index(e, "kind"), k=self._stack(e, "k"),
+                c=self._stack(e, "c"), rest=self._stack(e, "rest"))
+
         model = Model(
             props=props, gravity=self._tensor(self.gravity),
             joints={k: self._joint_data(v) for k, v in self._joints.items()},
@@ -426,7 +498,7 @@ class SystemBuilder:
             load_motors={k: self._motor_data(v)
                          for k, v in self._load_motors.items()},
             tsda=tsda, rsda=rsda,
-            shaft_constraints={}, shaft_elements=None,
+            shaft_constraints=shaft_cons, shaft_elements=shaft_elems,
             couplers={k: self._joint_data(v)
                       for k, v in self._couplers.items()},
             bushings=bushings,

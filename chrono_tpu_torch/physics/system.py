@@ -9,9 +9,9 @@ program.  This port, on a CUDA device with the ``"direct"`` solver, captures
 one step (no host sync, no branch on data) into a ``torch.cuda.CUDAGraph``
 and replays it; the VI and Krylov solvers read their loop tests on the
 host, so their steps run eagerly, and so does every step on the CPU.
-
-Shafts are not ported yet (``physics/shafts.py`` comes in a later slice):
-a model with shafts is refused.
+Shafts (``physics.shafts``) are bodies with one live spin; their couplings
+are rows of the same solve and their elements torques of the same
+accumulation.
 """
 
 from __future__ import annotations
@@ -30,11 +30,15 @@ from chrono_tpu_torch.physics.body import (
 from chrono_tpu_torch.physics.constraints import ConstraintRows, concat_rows
 from chrono_tpu_torch.physics.joints import coupler_rows, joint_rows
 from chrono_tpu_torch.physics.motors import motor_loads, motor_rows
+from chrono_tpu_torch.physics.shafts import (
+    SHAFT_ROW_GENERATORS, shaft_torques,
+)
 from chrono_tpu_torch.solver import descriptor as desc
 from chrono_tpu_torch.solver import krylov
 from chrono_tpu_torch.solver import vi as vi_solvers
 from chrono_tpu_torch.solver.direct import solve_dense_schur
 from chrono_tpu_torch.solver.projection import make_projector
+from chrono_tpu_torch.utils.graph import capture
 from chrono_tpu_torch.utils.segment import scatter_add
 from chrono_tpu_torch.utils.tree import tensor_dataclass
 
@@ -83,8 +87,8 @@ class Model:
     load_motors: dict                   # {kind: MotorData} torque/force motors
     tsda: Optional[fe.TSDAData]
     rsda: Optional[fe.RSDAData]
-    shaft_constraints: dict = None      # {kind: Shaft*Data} (not ported)
-    shaft_elements: object = None       # ShaftTorqueElements (not ported)
+    shaft_constraints: dict = None      # {kind: Shaft*Data} (physics.shafts)
+    shaft_elements: object = None       # ShaftTorqueElements
     couplers: dict = None               # {kind: JointData} velocity-level rows
     bushings: object = None             # fe.BushingData compliant mounts
 
@@ -102,19 +106,11 @@ class StepInfo(NamedTuple):
     n_rows: int
 
 
-def _refuse_shafts(model: Model):
-    if model.shaft_constraints or model.shaft_elements is not None:
-        raise NotImplementedError(
-            "shafts are not ported yet (physics/shafts.py comes in a later "
-            "slice)")
-
-
 def applied_forces(model: Model, state: BodyState, t, f_ext=None,
                    tau_ext=None):
     """Accumulate all smooth forces → (f_world (N,3), tau_local (N,3)):
-    gravity, gyroscopic torque, spring-dampers, bushings, motor loads and
-    optional user external loads."""
-    _refuse_shafts(model)
+    gravity, gyroscopic torque, spring-dampers, bushings, motor loads,
+    shaft elements and optional user external loads."""
     inv_m = model.props.inv_mass
     mass = torch.where(inv_m > 0, 1.0 / torch.clamp_min(inv_m, 1e-30),
                        torch.zeros_like(inv_m))
@@ -137,6 +133,9 @@ def applied_forces(model: Model, state: BodyState, t, f_ext=None,
             scatter_add(tau, data.body_a,
                         Q.qrotate_inv(state.q[data.body_a], ta)),
             data.body_b, Q.qrotate_inv(state.q[data.body_b], tb))
+    if model.shaft_elements is not None:
+        tau = tau + shaft_torques(model.shaft_elements, state.q, state.w,
+                                  model.n_bodies)
     return f, tau
 
 
@@ -146,8 +145,8 @@ def _concat(parts, state: BodyState) -> ConstraintRows:
 
 def bilateral_rows(model: Model, state: BodyState, t, h,
                    settings: SolverSettings) -> ConstraintRows:
-    """Lower all joints, constraint motors and couplers to stabilised rows."""
-    _refuse_shafts(model)
+    """Lower all joints, constraint motors, shaft couplings and couplers to
+    stabilised rows."""
     stab = (0.0 if settings.stab_mode in ("project", "filtered")
             else settings.stab_factor)
     parts = [
@@ -159,6 +158,9 @@ def bilateral_rows(model: Model, state: BodyState, t, h,
         motor_rows(kind, data, state.x, state.q, t, h, stab)
         for kind, data in model.motors.items()
     ]
+    if model.shaft_constraints:
+        parts += [SHAFT_ROW_GENERATORS[kind](data, state.x.dtype)
+                  for kind, data in model.shaft_constraints.items()]
     if model.couplers:
         parts += [coupler_rows(kind, data, state.x, state.q)
                   for kind, data in model.couplers.items()]
@@ -288,9 +290,12 @@ _ITERATIVE = ("apgd", "bb", "admm", "pjacobi", "cg", "minres", "gmres",
 
 
 def _packed(rows: ConstraintRows, model: Model):
-    """Packed rows (no third-body channel: only planetary shafts use it,
-    and shafts are not ported) and the packed M⁻¹."""
-    return desc.pack_rows(rows, has_c=False), desc.pack_minv(model.props)
+    """Packed rows and the packed M⁻¹.  Only planetary shaft rows use the
+    third-body slot, statically known from the model, so other scenes skip
+    its gathers."""
+    has_c = bool(model.shaft_constraints
+                 and "planetary" in model.shaft_constraints)
+    return desc.pack_rows(rows, has_c=has_c), desc.pack_minv(model.props)
 
 
 def step_euler_implicit_linearized(
@@ -497,16 +502,11 @@ def _simulate_graph(model, state, h, n_steps, settings, t, save_every):
             getattr(cur, f).copy_(getattr(new, f))
         t.add_(h)
 
-    # warm-up: one step on a side stream (library handles, workspaces); its
-    # result is dropped
-    side = torch.cuda.Stream(device=cur.x.device)
-    side.wait_stream(torch.cuda.current_stream(cur.x.device))
-    with torch.cuda.stream(side):
-        step_euler_implicit_linearized(model, cur, t, h, settings)
-    torch.cuda.current_stream(cur.x.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        one_step()
+    # the warm-up step's result is dropped
+    graph = capture(
+        one_step,
+        lambda: step_euler_implicit_linearized(model, cur, t, h, settings),
+        cur.x.device)
     for _ in range(n_steps):
         graph.replay()
     final = BodyState(**{f: getattr(cur, f).clone() for f in _STATE_FIELDS})

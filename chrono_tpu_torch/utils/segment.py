@@ -96,3 +96,12 @@ def rank_in_run(key_sorted: Tensor) -> Tensor:
     first = torch.cummax(torch.where(boundary, arange,
                                      torch.zeros_like(arange)), 0).values
     return arange - first
+
+
+def take(a: Tensor, i: Tensor) -> Tensor:
+    """``a[i]`` for a 0-d integer device tensor ``i``, as a gather (Python
+    indexing with a 0-d tensor may read it on the host, which a CUDA graph
+    cannot hold), with ``i`` clamped into range as JAX's gather clamps it
+    (a speed past the last shift speed selects the last gear)."""
+    i = torch.clamp(i.reshape(1).long(), 0, a.shape[0] - 1)
+    return a.index_select(0, i).squeeze(0)

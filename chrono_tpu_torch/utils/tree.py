@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 def static_field(**kwargs):
     """A dataclass field that holds configuration, not a tensor."""
@@ -29,3 +31,17 @@ def tensor_dataclass(cls):
     cls = dataclasses.dataclass(frozen=True)(cls)
     cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
     return cls
+
+
+def fields_as_tensors(obj, like):
+    """``obj`` with every non-static field that holds a number turned into
+    a 0-d tensor of ``like``'s dtype and device.  Tensor fields are kept as
+    they are (no copy), so once a carrier's fields live on the card a CUDA
+    graph can capture the functions that call this."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if not is_static(f) and isinstance(v, (int, float)):
+            changes[f.name] = torch.tensor(float(v), dtype=like.dtype,
+                                           device=like.device)
+    return dataclasses.replace(obj, **changes) if changes else obj

@@ -1,8 +1,33 @@
 """Vehicles (counterpart of ``chrono_tpu.vehicle``).
 
-Ported so far: ``suspension`` (every corner and axle template, built on
-``physics.builder.SystemBuilder``), which the vehicle-on-CRM demo's
-four double-wishbone corners need.  The wheeled-vehicle model
-(``wheeled``), tires, terrain models, the powertrain, the driver, tracked
-vehicles and ``models/`` wait for ROADMAP Queue 1 item 4.
+Ported: the suspension templates (``suspension``), the tire models
+(``tire``: TMeasy, Fiala, Pacejka 89 and 2002, TMsimple), rigid and SCM
+terrain (``terrain``), the powertrain, the drivers, the wheeled vehicle
+and its step (``wheeled``), the closed path-following loop
+(``closed_loop``) and the drawbar-pull rig (``dbp``).  Granular terrain,
+OpenCRG roads, tracked vehicles and the FEA tire wait for later slices.
 """
+
+from chrono_tpu_torch.vehicle.tire import (
+    FialaParams, Pac02Params, Pac89Params, TMeasyParams, TMsimpleParams,
+    fiala_forces, pac02_forces, pac89_forces, tmeasy_forces,
+    tmsimple_forces,
+)
+from chrono_tpu_torch.vehicle.terrain import (
+    Heightmap, SCMParams, SCMState, flat_terrain, make_scm_state,
+    scm_erosion_step, scm_relocate, scm_wheel_forces,
+)
+from chrono_tpu_torch.vehicle.powertrain import (
+    PowertrainParams, brake_torques, driveline_torques,
+)
+from chrono_tpu_torch.vehicle.driver import (
+    DataDriver, DriverInputs, HumanDriver, PathFollower, SpeedController,
+    acc_speed_command, double_lane_change_path, straight_path,
+)
+from chrono_tpu_torch.vehicle.wheeled import (
+    WheeledVehicle, ackermann_angles, build_wheeled_vehicle, vehicle_step,
+)
+from chrono_tpu_torch.vehicle.closed_loop import (
+    closed_loop_step, run_closed_loop,
+)
+from chrono_tpu_torch.vehicle.dbp import dbp_curve, run_dbp_rig

@@ -20,7 +20,8 @@ touch; ``bench_suite.py``'s ``bench_mixer`` cut to 125 spheres.
   ``general_mixer_scene``) must equal the converted one;
 - ``smc_contact_forces`` for every force, adhesion and tangential model,
   and one ``smc_step``;
-- the refusals: convex shapes, shafts, the card by default.
+- the refusals: convex shapes, the card by default; shafts, once refused,
+  pass through both contact steps.
 
 The JAX references are jitted once each (XLA's backend optimisations off);
 both sides run in float32 on the CPU.
@@ -48,6 +49,7 @@ from chrono_tpu_torch import convert
 from chrono_tpu_torch.collision import cell_list as tcl
 from chrono_tpu_torch.collision import pipeline as tpipe
 from chrono_tpu_torch.physics import smc as tsmc
+from chrono_tpu_torch.physics import shafts as tshafts
 from chrono_tpu_torch.physics import system as tsys
 from chrono_tpu_torch.physics.builder import SystemBuilder as TBuilder
 
@@ -586,12 +588,20 @@ def test_refusals(detected):
                     if v is not None}
     with pytest.raises(NotImplementedError, match="collision/mpr.py"):
         convert.collision_model_from_numpy(lv, device="cpu")
-    with pytest.raises(NotImplementedError, match="shafts"):
-        tpipe.nsc_step(tm.replace(shaft_elements=object()), tc, ts,
-                       torch.tensor(0.0), 1e-3)
-    with pytest.raises(NotImplementedError, match="shafts"):
-        tsmc.smc_step(tm.replace(shaft_constraints={"gear": None}), tc, ts,
-                      torch.tensor(0.0), 1e-3)
+    # shafts, once refused here, are taken: a zero torque pair leaves both
+    # contact steps as they were (tests/test_torch_shafts.py holds shafts
+    # to the JAX package)
+    zero_pair = tm.replace(shaft_elements=tshafts.ShaftTorqueElements(
+        shaft_a=torch.tensor([0], dtype=torch.int32),
+        shaft_b=torch.tensor([1], dtype=torch.int32),
+        kind=torch.tensor([2], dtype=torch.int32), k=torch.zeros(1),
+        c=torch.zeros(1), rest=torch.zeros(1)))
+    t0 = torch.tensor(0.0)
+    for step in (tpipe.nsc_step, tsmc.smc_step):
+        got, ref = step(zero_pair, tc, ts, t0, 1e-3)[0], \
+            step(tm, tc, ts, t0, 1e-3)[0]
+        for f in "xqvw":
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
     with pytest.raises(ValueError, match="unknown solver"):
         tpipe.nsc_step(tm, tc, ts, torch.tensor(0.0), 1e-3,
                        tsys.SolverSettings(solver="psor"))

@@ -54,8 +54,11 @@ def test_guard_walks_the_whole_port():
     assert "chrono_tpu_torch/ops/cuda/sph_substep.py" in FILES
     assert "chrono_tpu_torch/fsi/sph/pencil.py" in FILES
     for module in ("core/quaternion", "core/functions", "core/dual",
-                   "physics/system", "physics/builder", "solver/direct",
-                   "solver/descriptor"):
+                   "physics/system", "physics/builder", "physics/shafts",
+                   "solver/direct", "solver/descriptor", "vehicle/driver",
+                   "vehicle/powertrain", "vehicle/tire", "vehicle/terrain",
+                   "vehicle/wheeled", "vehicle/closed_loop", "vehicle/dbp",
+                   "models/hmmwv", "models/decks", "models/rover"):
         assert f"chrono_tpu_torch/{module}.py" in FILES
     assert len(FILES) >= 20
 

@@ -907,3 +907,20 @@ def test_side_plan_sums_are_deterministic_on_the_card(card):
     cpu = dt("cpu")[0]
     np.testing.assert_allclose(a.cpu().numpy(), cpu.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_closed_loop_graph_equals_eager_loop(card):
+    """The HMMWV double lane change's closed loop (``run_closed_loop``, one
+    captured step replayed) equals the eager loop of ``closed_loop_step``
+    bit for bit over 20 steps, steering included (the steer angle is
+    written into the motor profile inside the captured step); with no
+    step it captures and returns an empty record."""
+    _, graph = card.dlc_graph(card.DEV, 20)
+    state, xs = card.dlc_eager(card.DEV, 20)
+    for f in "xqvw":
+        assert torch.equal(getattr(graph.state, f), getattr(state, f)), f
+    assert torch.equal(graph.chassis_x, xs)
+    assert graph.chassis_x.shape == (20, 3)
+    _, empty = card.dlc_graph(card.DEV, 0)
+    assert empty.chassis_x.shape == (0, 3)

@@ -12,7 +12,8 @@ and send both packages to the fallback regularisation), one step in every
 ``bench_mbs`` held to the JAX steps at x atol 2e-4 — the JAX package's own
 direct-vs-Krylov bound (tests/test_mbs.py:246); the double pendulum is
 chaotic, so longer runs are held to invariants on the card instead.  Last,
-what the port refuses: an unknown solver, shafts.
+what the port refuses (an unknown solver) and that it takes shafts, once
+refused.
 
 Both sides run in float32 on the CPU.  The JAX step runs eagerly around its
 two heavy pieces, the joint lowering and the dense solve, which a
@@ -523,22 +524,40 @@ def test_slider_crank_strokes_on_the_cpu(scenes):
 # ------------------------------------------------------------- refusals
 
 def test_refusals(scenes):
+    """An unknown solver is refused.  Shafts, once refused here, are now
+    taken: the builder's shaft methods, the shaft terms of the applied
+    forces and of the rows, and the converter (tests/test_torch_shafts.py
+    holds them to the JAX package)."""
     _, _, tm, ts = scenes["bench_mbs"]
     t = torch.tensor(0.0)
     with pytest.raises(ValueError, match="unknown solver"):
         tsys.step_euler_implicit_linearized(
             tm, ts, t, H, tsys.SolverSettings(solver="psor"))
     direct = tsys.SolverSettings(solver="direct")
-    with pytest.raises(NotImplementedError, match="shafts"):
-        tsys.applied_forces(tm.replace(shaft_elements=object()), ts, t)
-    with pytest.raises(NotImplementedError, match="shafts"):
-        tsys.bilateral_rows(tm.replace(shaft_constraints={"gear": None}),
-                            ts, t, H, direct)
     bld = TBuilder(device="cpu")
-    for method in ("add_shaft", "add_shaft_gear", "add_shaft_planetary",
-                   "add_shaft_body", "add_shaft_clutch",
-                   "add_shaft_torsion_spring", "add_shaft_torque"):
-        with pytest.raises(NotImplementedError, match="physics/shafts.py"):
-            getattr(bld, method)(0, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="shafts"):
-        convert.mbs_model_from_numpy({"shaft_elements": {}}, device="cpu")
+    body = bld.add_body(mass=1.0)
+    shafts = [bld.add_shaft(inertia=0.5) for _ in range(3)]
+    bld.add_shaft_gear(shafts[0], shafts[1], 2.0)
+    bld.add_shaft_planetary(*shafts, 1.5)
+    bld.add_shaft_body(shafts[2], body)
+    bld.add_shaft_clutch(shafts[0], shafts[1], 10.0)
+    bld.add_shaft_torsion_spring(shafts[1], shafts[2], 5.0)
+    bld.add_shaft_torque(shafts[0], shafts[2], 1.0)
+    model, state = bld.finalize()
+    f, tau = tsys.applied_forces(model, state, t)
+    # the torque pair; the clutch transmits nothing between shafts at rest
+    assert float(tau[shafts[0], 2]) == 1.0
+    rows = tsys.bilateral_rows(model, state, t, H, direct)
+    assert rows.m == 3 and int(rows.body_c[1]) == shafts[2]
+    new, _ = tsys.step_euler_implicit_linearized(model, state, t, H, direct)
+    assert bool(torch.isfinite(new.w).all())
+    conv = convert.mbs_model_from_numpy(
+        {"props": {k: getattr(model.props, k).numpy()
+                   for k in ("inv_mass", "inertia", "inv_inertia")},
+         "gravity": model.gravity.numpy(),
+         "shaft_elements": {f.name: getattr(model.shaft_elements,
+                                            f.name).numpy()
+                            for f in dataclasses.fields(
+                                model.shaft_elements)}},
+        device="cpu")
+    assert conv.shaft_elements.kind.tolist() == [0, 1, 2]
