@@ -170,7 +170,26 @@ once) and then runs:
    steps through a graph of ``rover_step_scm`` with that test's checks,
    twice bit for bit, 50 steps card against CPU, the SCM pass alone
    timed, and the DBP rig of tests/test_dbp.py with its checks; (d) the
-   Polaris wishbone build and the sedan, 300 steps card against CPU.
+   Polaris wishbone build and the sedan, 300 steps card against CPU;
+15. the neighbour-list (gather) backend (no kernel on its path): (a) at
+   the JAX tests' sizes, the card against the port on the CPU, two runs
+   on the card bit for bit and the lists equal at step 0: the floating
+   block of tests/test_fsi.py (20 outer steps of ``make_fsi_advance_fn``,
+   10 with ISPH), the periodic column of tests/test_sph.py (3 cycles of
+   ``make_sph_advance_fn``) and the wheel bed (4 outer steps of
+   ``crm_fsi_step`` on the gather engine); (b) config #4's rigid body at
+   d0 = 0.006 (85,660 markers; cells of W/16, 96 neighbours, 32 a cell,
+   48 for the heavy block): the light block for 0.4 s and the heavy one
+   for 0.25 s with
+   tests/test_fsi.py's checks, overflow 0 at every rebuild, the floor
+   unmoved, the rigid markers on their body, ms an outer step and one
+   profiled outer step by part; (c) phase 4's dam break through
+   ``make_sph_advance_fn`` (64 a cell, 96 neighbours), 1 warm-up and 2
+   timed cycles with phase 4's checks, marker-steps/s and peak memory,
+   and one substep against phase 4's CUDA sweeps; (d) config #5's demo
+   bed on CRM's default engine (``make_crm_fsi_advance_fn``, gather):
+   bench_crm's 6 intervals with phase 13's checks and RTF, and the first
+   10 outer steps against the pencil engine.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -223,7 +242,14 @@ from chrono_tpu_torch.fsi.sph.pencil import (
 from chrono_tpu_torch.fsi.sph.state import (
     BOUNDARY, FLUID, RIGID_BCE, SPHParams,
 )
-from chrono_tpu_torch.fsi.sph.system import make_sph_state, suggest_sph_dt
+from chrono_tpu_torch.fsi.sph.system import (
+    make_sph_advance_fn, make_sph_state, rebuild_sph_neighbors, sph_substep,
+    suggest_sph_dt,
+)
+from chrono_tpu_torch.fsi.sph import kernels as sph_kernels
+from chrono_tpu_torch.fsi.sph import wcsph as sph_wcsph
+from chrono_tpu_torch.fsi.system import FSIState, make_fsi_advance_fn
+from chrono_tpu_torch.dem.neighbors import build_neighbor_list
 from chrono_tpu_torch.ops.cuda import _build
 from chrono_tpu_torch.ops.cuda import crm_substep as crm
 from chrono_tpu_torch.ops.cuda import sph_substep as sph
@@ -295,6 +321,9 @@ SPH_VEL_RTOL, SPH_VEL_ATOL = 1e-4, 2e-5
 # the published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
+# rates a later phase prints beside its own: phase 4's dam break, phase
+# 13's config #5
+RATES = {}
 PEAK_F32_S = 67e12
 KERNELS = ("dem_substep", "migrate", "sph_substep", "crm_substep",
            "crm_outer", "nsc_detect", "nsc_sweep", "dem_forces")
@@ -1350,6 +1379,7 @@ def sph_main_path(card, profile):
     print(f"SPH main path: {steps} substeps of {n} markers in {wall:.4f} s "
           f"= {n * steps / wall:.6e} marker-steps/s (bin, 16 substeps of 3 "
           f"sweeps, unbin; host clock) on {card}")
+    RATES["dam"] = n * steps / wall
 
     # each sweep against its twin at the main path's shapes
     c = sph.sph_static_params(params)
@@ -1546,10 +1576,11 @@ def crm_soil(d0):
     """The firm cohesive loam of demos/demo_vehicle_crm.py:70-81 at spacing
     d0: ρ0 = 1700, c_s = 40, α = 0.3, dt = 1e-4, E = 4e6, ν = 0.3,
     tan φ = 0.9, c = 2000 Pa, h = 1.2 d0, cubic kernel, 4 substeps per
-    cycle."""
+    cycle, and the gather backend's 96 neighbours and 64 markers a
+    cell."""
     params = SPHParams(d0=d0, h=1.2 * d0, rho0=1700.0, mu=0.0, c_s=40.0,
                        gravity=(0.0, 0.0, -G), dt=1e-4, alpha_visc=0.3,
-                       rebuild_every=4)
+                       max_neighbors=96, max_per_cell=64, rebuild_every=4)
     soil = CRMParams(youngs=4e6, poisson=0.3, friction_angle=0.9,
                      cohesion=2000.0)
     return params, soil
@@ -3744,7 +3775,8 @@ def as_float32(params, soil):
 def crm_wheel_scene(device=None):
     """The single-wheel mini bed of tests/test_crm_terrain.py:171-205: a
     0.45 × 0.24 × 0.12 m bed at d0 = 0.03 (E = 2e6, ν = 0.3, tan φ = 0.7,
-    no cohesion, α = 0.1), a 10 kg wheel of r = 0.08, w = 0.09 pre-sunk by
+    no cohesion, α = 0.1, 96 neighbours and 64 markers a cell on the
+    gather backend), a 10 kg wheel of r = 0.08, w = 0.09 pre-sunk by
     2 cm in a carved crater, a 3 N·m torque about y, on ``device`` (the
     card by default).  The drive records the bodies it is called with
     (``seen``), as :func:`crm_vehicle_scene`'s does."""
@@ -3752,7 +3784,7 @@ def crm_wheel_scene(device=None):
     params, soil = as_float32(
         SPHParams(d0=0.03, h=1.2 * 0.03, rho0=1700.0, mu=0.0, c_s=40.0,
                   gravity=(0.0, 0.0, -G), dt=1e-4, alpha_visc=0.1,
-                  rebuild_every=4),
+                  max_neighbors=96, max_per_cell=64, rebuild_every=4),
         CRMParams(youngs=2e6, poisson=0.3, friction_angle=0.7,
                   cohesion=0.0))
     d0 = params.d0
@@ -4222,6 +4254,8 @@ def vehicle_engines(card, sc, n_intervals, what, cpu_first=None,
         prof = vehicle_profile(sc, adv, states[-1], f"{what}, {name}")
         res[name] = dict(states=states, rtf=rtf, ms=ms, prof=prof,
                          adv=adv)
+        if what == "config #5" and whole:
+            RATES["config5_rtf"] = rtf
     a, b = (res[k]["states"] for k in res)
     r_eng = fsi_close(a[0], b[0], f"{what}: whole_outer vs per-sweep",
                       long_run=True)
@@ -4698,6 +4732,430 @@ def wheeled_main_path(card):
         print(f"phase 14 ({part}) took {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+# tests/test_fsi.py:20-71: a cube floating in a periodic-xy tank
+BLOCK_W, BLOCK_H, BLOCK_SIDE, BLOCK_RHO0 = 0.24, 0.3, 0.08, 1000.0
+# the bodies card against CPU: tests/test_torch_crm_fsi.py's coupled-step
+# tolerances (x rtol 1e-5 / atol 1e-6, v rtol 1e-4 / atol 1e-5); the
+# markers at the North star's
+BLOCK_T_SIM = {500.0: 0.4, 3000.0: 0.25}
+# config #4 at a real size: d0 = 0.006 (40 spacings over the period),
+# cells of W/16 = 0.015 m (≥ 2h = 0.0144), 96 neighbours, 32 markers a
+# cell for the light block; the heavy one settles on the floor, where its
+# markers and the floor's share cells (36 at most over its 0.25 s, rows
+# 88 at most: a probe at 64 and 160 slots on the H100), so 48
+BLOCK_D0, BLOCK_CELLS, BLOCK_K = 0.006, 16, 96
+BLOCK_C = {500.0: 32, 3000.0: 48}
+GATHER_DAM_C, GATHER_DAM_K = 64, 96
+
+
+def floating_block_scene(d0=0.02, rho_solid=500.0, cells=3, max_per_cell=80,
+                         max_neighbors=96, device=None):
+    """tests/test_fsi.py's floating block on the port: a cube of side 0.08 m
+    and density ``rho_solid`` (3 BCE layers, body 0) at its Archimedes
+    height in 0.3 m of water (ρ0 1000, μ 0.5, c_s 15, laminar, XSPH 0.2,
+    symplectic, dt = suggest_sph_dt) over 3 floor layers, in a 0.24 m
+    tank periodic in x and y, the water at its hydrostatic density; the
+    grid ``cells`` × ``cells`` cells across the period (the test: 3, 80
+    slots).  Returns a dict with the model, params, grid, state, z0."""
+    dev = torch.device(device or DEV)
+    W, H, side, rho0 = BLOCK_W, BLOCK_H, BLOCK_SIDE, BLOCK_RHO0
+    params = SPHParams(d0=d0, h=1.2 * d0, rho0=rho0, mu=0.5, c_s=15.0,
+                       gravity=(0.0, 0.0, -G), dt=1e-4,
+                       viscosity_model="laminar",
+                       max_neighbors=max_neighbors,
+                       max_per_cell=max_per_cell, rebuild_every=1,
+                       integrator="symplectic", xsph_eps=0.2)
+    params = params.replace(dt=suggest_sph_dt(params))
+    m = rho_solid * side ** 3
+    inertia = m * side ** 2 / 6.0
+    z0 = H - side * rho_solid / rho0 + side / 2
+    bld = SystemBuilder(device=dev)
+    bld.add_body(mass=m, inertia=(inertia,) * 3, pos=(W / 2, W / 2, z0))
+    model, bodies = bld.finalize()
+    fluid = grid_sample_box((0, 0, 0), (W, W, H), d0)
+    lo = np.array([W / 2 - side / 2, W / 2 - side / 2, z0 - side / 2])
+    pad = 0.5 * d0
+    fluid = fluid[~np.all((fluid > lo - pad) & (fluid < lo + side + pad),
+                          axis=1)]
+    floor = grid_sample_box((0, 0, -3 * d0), (W, W, 0), d0)
+    shell = fsi_bce.box_body_markers((side / 2,) * 3, d0, layers=3)
+    fl = make_sph_state(params, fluid, boundary_pts=floor,
+                        rigid_pts=shell + np.array([W / 2, W / 2, z0]),
+                        rigid_body_ids=np.zeros(len(shell), int),
+                        rigid_local=shell, device=dev)
+    g = params.eos_gamma
+    B = params.c_s ** 2 * rho0 / g
+    p_h = rho0 * G * torch.clamp(H - fl.pos[:, 2], min=0.0)
+    fl = fl.replace(rho=torch.where(fl.kind == FLUID,
+                                    rho0 * (1.0 + p_h / B) ** (1.0 / g),
+                                    fl.rho))
+    cell = W / cells
+    grid = GridSpec(origin=(0.0, 0.0, -4 * d0), cell_size=cell,
+                    dims=(cells, cells, int(np.ceil(2 * H / cell)) + 1),
+                    periodic=(True, True, False))
+    return dict(model=model, params=params, grid=grid, z0=z0,
+                state=FSIState(bodies=bodies, fluid=fl,
+                               time=torch.zeros((), device=dev)))
+
+
+def periodic_column_scene(device=None, nx=10, nz=20, d0=0.02):
+    """tests/test_sph.py:51-90's hydrostatic_setup on the port: a periodic
+    x–y water column (nx × nx × nz markers over 3 floor layers, ρ0 1000,
+    μ 0.05, c_s 20, laminar, symplectic, 4 substeps a cycle, 80 slots, 96
+    neighbours), at its hydrostatic density."""
+    dev = torch.device(device or DEV)
+    H, W = nz * d0, nx * d0
+    params = SPHParams(d0=d0, h=1.2 * d0, rho0=1000.0, mu=0.05, c_s=20.0,
+                       gravity=(0.0, 0.0, -G), dt=1e-4,
+                       viscosity_model="laminar", max_neighbors=96,
+                       max_per_cell=80, rebuild_every=4,
+                       integrator="symplectic")
+    params = params.replace(dt=suggest_sph_dt(params))
+    fluid = grid_sample_box((0, 0, 0), (W, W, H), d0)
+    floor = grid_sample_box((0, 0, -3 * d0), (W, W, 0), d0)
+    nxc = max(int(round(W / (2.5 * 1.2 * d0))), 1)
+    cell = W / nxc
+    grid = GridSpec(origin=(0.0, 0.0, -6 * d0), cell_size=cell,
+                    dims=(nxc, nxc, int(np.ceil((2 * H + 6 * d0) / cell))
+                          + 2), periodic=(True, True, False))
+    st = make_sph_state(params, fluid, boundary_pts=floor, device=dev)
+    g = params.eos_gamma
+    B = params.c_s ** 2 * 1000.0 / g
+    p_h = 1000.0 * G * torch.clamp(H - st.pos[:, 2], min=0.0)
+    st = st.replace(rho=torch.where(st.kind == FLUID,
+                                    1000.0 * (1.0 + p_h / B) ** (1.0 / g),
+                                    st.rho))
+    return params, grid, st
+
+
+def same_list(a, b):
+    return (torch.equal(a.idx.cpu(), b.idx.cpu())
+            and torch.equal(a.valid.cpu(), b.valid.cpu())
+            and int(a.overflow) == int(b.overflow))
+
+
+def sph_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("pos", "vel", "rho")) and same_list(a.nbr, b.nbr)
+
+
+def sph_close(got, ref, what, x_tol=NS_X_TOL, v_tol=NS_V_TOL):
+    """Markers ``got`` against ``ref`` (either device): x and v at the
+    given tolerances (v's atol scaled by max(1, max|v|)), ρ at the SPH
+    state tolerance.  Returns the largest error over its tolerance."""
+    v_ref = ref.vel.cpu()
+    tv = dict(rtol=v_tol["rtol"],
+              atol=v_tol["atol"] * max(1.0, float(v_ref.abs().max())))
+    return max(check_close(g.cpu(), r.cpu(), what=f"{what} {w}", **t)[1]
+               for g, r, t, w in ((got.pos, ref.pos, x_tol, "x"),
+                                  (got.vel, v_ref, tv, "v"),
+                                  (got.rho, ref.rho, SPH_RHO_TOL, "rho")))
+
+
+def block_run(sc, dev, n_outer, scheme):
+    """``make_fsi_advance_fn`` of a block scene on ``dev``: (state,
+    overflow)."""
+    adv = make_fsi_advance_fn(sc["model"], sc["params"], sc["grid"], 2,
+                              scheme=scheme, device=dev)
+    return adv(sc["state"], n_outer)
+
+
+def gather_card_vs_cpu():
+    """Phase 15 (a): at the JAX tests' sizes, the card against the port on
+    the CPU from the same inputs, each run twice on the card (bit for
+    bit), the lists equal entry for entry at step 0."""
+    cpu = torch.device("cpu")
+    lines = []
+    sc, sc_cpu = floating_block_scene(), floating_block_scene(device=cpu)
+    p, g = sc["params"], sc["grid"]
+    nb = rebuild_sph_neighbors(p, g, sc["state"].fluid).nbr
+    nb_cpu = rebuild_sph_neighbors(p, g, sc_cpu["state"].fluid).nbr
+    require(same_list(nb, nb_cpu) and int(nb.overflow) == 0,
+            "floating block: the lists differ at step 0")
+    for scheme, n_outer in (("wcsph", 20), ("isph", 10)):
+        a, ovf = block_run(sc, DEV, n_outer, scheme)
+        b, _ = block_run(sc, DEV, n_outer, scheme)
+        ref, ovf_cpu = block_run(sc_cpu, cpu, n_outer, scheme)
+        require(int(ovf) == int(ovf_cpu) == 0,
+                f"floating block, {scheme}: overflow")
+        require(sph_equal(a.fluid, b.fluid) and all(torch.equal(
+            getattr(a.bodies, f), getattr(b.bodies, f)) for f in "xqvw"),
+            f"floating block, {scheme}: two runs on the card differ")
+        r_b = max(check_close(getattr(a.bodies, f).cpu(),
+                              getattr(ref.bodies, f), what=f"block {f}",
+                              **tol)[1]
+                  for f, tol in (("x", FSI_X_TOL), ("q", FSI_X_TOL),
+                                 ("v", FSI_V_TOL), ("w", FSI_V_TOL)))
+        r_f = sph_close(a.fluid, ref.fluid, f"floating block {scheme}")
+        lines.append(f"floating block ({sc['state'].fluid.n} markers), "
+                     f"{scheme}, {n_outer} outer steps x 2 substeps: body "
+                     f"{r_b:.3f}, markers {r_f:.3f} of the tolerance, vz "
+                     f"{float(a.bodies.v[0, 2]):.4e} m/s")
+    params, grid, st = periodic_column_scene()
+    _, _, st_cpu = periodic_column_scene(device=cpu)
+    require(same_list(rebuild_sph_neighbors(params, grid, st).nbr,
+                      rebuild_sph_neighbors(params, grid, st_cpu).nbr),
+            "periodic column: the lists differ at step 0")
+    a, ovf = make_sph_advance_fn(params, grid, device=DEV)(st, 3)
+    b, _ = make_sph_advance_fn(params, grid, device=DEV)(st, 3)
+    ref, ovf_cpu = make_sph_advance_fn(params, grid, device=cpu)(st_cpu, 3)
+    require(int(ovf) == int(ovf_cpu) == 0, "periodic column: overflow")
+    require(sph_equal(a, b), "periodic column: two runs on the card differ")
+    lines.append(f"periodic column ({st.n} markers), 3 cycles x 4 "
+                 f"substeps: {sph_close(a, ref, 'periodic column'):.3f} of "
+                 f"the tolerance")
+    sc, sc_cpu = crm_wheel_scene(), crm_wheel_scene(device=cpu)
+    t, t_cpu = sc["state"].terrain, sc_cpu["state"].terrain
+    cut = sph_kernels.KERNELS[sc["params"].kernel][2] * sc["params"].h
+    require(same_list(
+        build_neighbor_list(sc["grid"], t.pos, cut, sc["params"].max_per_cell,
+                            sc["params"].max_neighbors),
+        build_neighbor_list(sc["grid"], t_cpu.pos, cut,
+                            sc["params"].max_per_cell,
+                            sc["params"].max_neighbors)),
+            "wheel bed: the lists differ at step 0")
+    runs = []
+    for s, d in ((sc, DEV), (sc, DEV), (sc_cpu, cpu)):
+        st = s["state"]
+        for _ in range(4):
+            st, ov, _ = crm_fsi_step(s["model"], s["params"], s["soil"],
+                                     s["grid"], st, 2, s["wheels"],
+                                     f_ext_fn=s["drive"])
+            require(int(ov) == 0, "wheel bed, gather: overflow")
+        runs.append(st)
+    require(fsi_equal(runs[0], runs[1]),
+            "wheel bed, gather: two runs on the card differ")
+    r = fsi_close(runs[0], runs[2], "wheel bed gather card vs CPU",
+                  FSI_X_TOL, FSI_V_TOL, terrain=False)
+    r_t = fsi_close(runs[0], runs[2], "wheel bed gather card vs CPU")
+    lines.append(f"wheel bed ({t.n} markers), crm_fsi_step on the gather "
+                 f"backend, 4 outer steps x 2 substeps: the wheel {r:.3f} "
+                 f"of the coupled step's tolerance, bodies and terrain "
+                 f"{r_t:.3f} of the North star's")
+    print("phase 15 (a), card vs the port on the CPU, two runs on the card "
+          "bit for bit, the lists equal at step 0: " + "; ".join(lines))
+
+
+def fsi_pieces(sc, st, n_sub=2):
+    """One outer step of ``fsi_step`` in its four parts, each under the
+    profiler: (kernels, device ms) of the list rebuild (with the markers'
+    move), the fluid substeps, the reaction and its reduction, and the
+    multibody step (a graph replay)."""
+    p, g, model = sc["params"], sc["grid"], sc["model"]
+    b, f = st.bodies, st.fluid
+    mbs = MBSStep(model, p.dt * n_sub, SolverSettings(solver="direct"))
+    box = {}
+
+    def rebuild():
+        pos, vel = fsi_bce.update_rigid_markers(
+            f.pos, f.vel, f.kind, f.body_id, f.bce_local, b.x, b.q, b.v, b.w)
+        box["f"] = rebuild_sph_neighbors(p, g, f.replace(pos=pos, vel=vel))
+
+    def substeps():
+        fl = box["f"]
+        for _ in range(n_sub):
+            fl = sph_substep(p, g, fl)
+        box["f"] = fl
+
+    def reaction():
+        fl = box["f"]
+        _, dv = sph_wcsph.wcsph_rhs(p, g, fl.pos, fl.vel, fl.rho, fl.kind,
+                                    fl.nbr.idx, fl.nbr.valid)
+        fb, tw = fsi_bce.rigid_body_forces(p, dv, fl.kind, fl.body_id,
+                                           fl.pos, b.x, model.n_bodies)
+        box["load"] = (fb, Q.qrotate_inv(b.q, tw))
+
+    out = {}
+    for name, fn in (("rebuild", rebuild), ("substeps", substeps),
+                     ("reaction", reaction)):
+        _, ev = device_events(fn)
+        out[name] = (len(ev), sum(e.time_range.elapsed_us()
+                                  for e in ev) / 1e3)
+    mbs(b, st.time, *box["load"])
+    _, ev = device_events(lambda: mbs(b, st.time, *box["load"]))
+    out["mbs"] = (len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+    return out
+
+
+def block_at_size(card):
+    """Phase 15 (b): config #4's rigid-body coupling at d0 = 0.006 m, the
+    light and the heavy block through ``make_fsi_advance_fn`` with
+    tests/test_fsi.py's checks."""
+    for rho_solid, t_sim in BLOCK_T_SIM.items():
+        sc = floating_block_scene(BLOCK_D0, rho_solid, BLOCK_CELLS,
+                                  BLOCK_C[rho_solid], BLOCK_K)
+        p, st0 = sc["params"], sc["state"]
+        fl0 = st0.fluid
+        n_fluid = int((fl0.kind == FLUID).sum())
+        n_outer = int(t_sim / (2 * p.dt))
+        adv = make_fsi_advance_fn(sc["model"], p, sc["grid"], 2, device=DEV)
+        st, ovf = adv(st0, 1)                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ovf2 = adv(st, n_outer - 2)
+        prev = st.bodies
+        st, ovf3 = adv(st, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ovf = max(int(ovf), int(ovf2), int(ovf3))
+        require(ovf == 0, f"block {rho_solid}: list overflow {ovf}")
+        f = st.fluid
+        require(all(bool(torch.isfinite(a).all()) for a in
+                    (f.pos, f.vel, f.rho, st.bodies.x, st.bodies.v)),
+                f"block {rho_solid}: non-finite state")
+        floor = fl0.kind == BOUNDARY
+        require(torch.equal(f.pos[floor], fl0.pos[floor]),
+                f"block {rho_solid}: a floor marker moved")
+        want, _ = fsi_bce.update_rigid_markers(
+            f.pos, f.vel, f.kind, f.body_id, f.bce_local, prev.x, prev.q,
+            prev.v, prev.w)
+        rig = f.kind == RIGID_BCE
+        r_err = float((f.pos[rig] - want[rig]).abs().max())
+        require(r_err <= 4 * EPS32 * float(f.pos[rig].abs().max()),
+                f"block {rho_solid}: a rigid marker is {r_err} m off")
+        z, vz = float(st.bodies.x[0, 2]), float(st.bodies.v[0, 2])
+        top = float(f.pos[f.kind == FLUID, 2].max())
+        require(top < 2 * BLOCK_H, f"block {rho_solid}: fluid at z {top}")
+        if rho_solid < BLOCK_RHO0:
+            require(abs(z - sc["z0"]) < 0.025 and abs(vz) < 0.25,
+                    f"light block: z {z} vs {sc['z0']}, vz {vz}")
+        else:
+            require(z < sc["z0"] - 0.03, f"heavy block: {sc['z0']} -> {z}")
+        ms = wall / (n_outer - 1) * 1e3
+        print(f"block rho {rho_solid:.0f} at d0 {BLOCK_D0} ({f.n} markers: "
+              f"{n_fluid} fluid, {int(floor.sum())} floor, {int(rig.sum())} "
+              f"on the cube; grid {sc['grid'].dims}, {BLOCK_C[rho_solid]} a "
+              f"cell, "
+              f"{BLOCK_K} neighbours): {n_outer} outer steps of 2 substeps "
+              f"(t = {float(st.time):.4f} s), z {z:.5f} (start "
+              f"{sc['z0']:.5f}, the light block's Archimedes height), vz "
+              f"{vz:.4e} m/s, fluid top {top:.4f} m, "
+              f"overflow 0 at every rebuild, floor unmoved, rigid markers "
+              f"within {r_err:.2e} m; {ms:.4f} ms an outer step (host "
+              f"clock) on {card}")
+        if rho_solid < BLOCK_RHO0:
+            pieces = fsi_pieces(sc, st)
+            total = sum(ms_ for _, ms_ in pieces.values())
+            print("block, one profiled outer step by part (kernels, device "
+                  "ms): " + "; ".join(
+                      f"{k} {n} kernels {t:.4f} ms" for k, (n, t) in
+                      pieces.items()) + f"; {total:.4f} ms of device time "
+                  f"in all")
+            RATES["block_ms"] = ms
+
+
+def gather_dam(card, n_target=1_000_000):
+    """Phase 15 (c): phase 4's dam break (1,069,751 markers) through the
+    gather backend's ``make_sph_advance_fn``, on phase 4's cells with 64
+    markers a cell and 96 neighbours, 8 substeps a cycle; then one substep
+    against phase 4's CUDA sweeps on the same input."""
+    params, grid, state, C = dam_scene(n_target)
+    params = params.replace(max_per_cell=GATHER_DAM_C,
+                            max_neighbors=GATHER_DAM_K)
+    n = state.n
+    fluid = state.kind == FLUID
+    torch.cuda.reset_peak_memory_stats()
+    adv = make_sph_advance_fn(params, grid, device=DEV)
+    st, ovf = adv(state, 1)                                 # warm-up
+    require(int(ovf) == 0, f"gather dam warm-up overflow {int(ovf)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = adv(st, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(int(ovf) == 0, f"gather dam overflow {int(ovf)}")
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (st.pos, st.vel, st.rho)), "gather dam: non-finite state")
+    require(torch.equal(st.pos[~fluid], state.pos[~fluid]),
+            "gather dam: a boundary marker moved")
+    rho = st.rho[fluid]
+    lo, hi = float(rho.min()), float(rho.max())
+    require(0.7 * params.rho0 <= lo and hi <= 1.5 * params.rho0,
+            f"gather dam: fluid density [{lo}, {hi}]")
+    steps = 2 * params.rebuild_every
+    rate = n * steps / wall
+    most = int(st.nbr.valid.sum(1).max())
+    one = params.replace(rebuild_every=1)
+    got, _ = make_sph_advance_fn(one, grid, device=DEV)(st, 1)
+    ref, ovf_p = make_sph_advance_pencil(one, grid, capacity=C,
+                                         device=DEV)(st, 1)
+    require(int(ovf_p) == 0, "gather dam: the sweeps overflow")
+    v_scale = float(ref.vel.abs().max())
+    r = max(check_close(got.rho, ref.rho, what="gather dam rho",
+                        **SPH_RHO_TOL)[1],
+            check_close(got.vel, ref.vel, SPH_VEL_RTOL,
+                        SPH_VEL_ATOL * v_scale, "gather dam v")[1],
+            check_close(got.pos, ref.pos, what="gather dam x",
+                        **SPH_POS_TOL)[1])
+    ph4 = RATES.get("dam")
+    print(f"gather dam ({n} markers, grid {grid.dims}, {GATHER_DAM_C} a "
+          f"cell, {GATHER_DAM_K} neighbours, most in a row {most}): "
+          f"{steps} substeps in {wall:.4f} s = {rate:.6e} marker-steps/s "
+          f"(host clock), peak device memory {peak:.3f} GiB, on {card}; "
+          f"phase 4's sweeps: "
+          + (f"{ph4:.6e} marker-steps/s" if ph4 else "not run in this call")
+          + f"; overflow 0, finite, boundary unmoved, fluid rho [{lo:.4f}, "
+          f"{hi:.4f}]; one substep against phase 4's CUDA sweeps {r:.3f} of "
+          f"the SPH state tolerance")
+    RATES["gather_dam"] = rate
+
+
+def vehicle_gather(card):
+    """Phase 15 (d): config #5's demo bed on CRM's default engine, the
+    gather backend, through ``make_crm_fsi_advance_fn``: bench_crm's 6
+    intervals of 40 outer steps with phase 13's checks, and the first 10
+    outer steps against the pencil engine."""
+    sc = crm_vehicle_scene()
+    p = sc["params"]
+    adv = make_crm_fsi_advance_fn(sc["model"], p, sc["soil"], sc["grid"],
+                                  p.rebuild_every, sc["wheels"],
+                                  f_ext_fn=sc["drive"], device=DEV)
+    states, walls = vehicle_run(sc, adv, CRM_VEHICLE_INTERVALS,
+                                "config #5, gather")
+    rigid, on_cone, viol = vehicle_check(sc, states[-1], "config #5, gather")
+    _, rut = vehicle_line(sc, states[-1], 0)
+    require(rut < R_WHEEL * 1000, f"config #5, gather: rut {rut} mm")
+    sim = CRM_VEHICLE_OUTER * p.dt * p.rebuild_every
+    rtf = sum(walls[1:]) / (sim * (CRM_VEHICLE_INTERVALS - 1))
+    ms = sum(walls[1:]) / ((CRM_VEHICLE_INTERVALS - 1)
+                           * CRM_VEHICLE_OUTER) * 1e3
+    a, ovf = adv(sc["state"], CRM_VEHICLE_CPU_OUTER)
+    pencil = make_crm_fsi_advance_fn(
+        sc["model"], p, sc["soil"], sc["grid"], p.rebuild_every,
+        sc["wheels"], f_ext_fn=sc["drive"], engine="pencil",
+        pencil_capacity=CRM_VEHICLE_C, device=DEV)
+    b, ovf_p = pencil(sc["state"], CRM_VEHICLE_CPU_OUTER)
+    require(int(ovf) == int(ovf_p) == 0, "config #5: overflow")
+    r = fsi_close(a, b, "config #5, gather vs pencil", long_run=True)
+    ph13 = RATES.get("config5_rtf")
+    print(f"config #5, gather ({sc['state'].terrain.n} markers): "
+          f"steady-state RTF = {rtf:.4f} ({ms:.4f} ms an outer step; first "
+          f"interval {walls[0]:.3f} s left out) on {card}; phase 13's "
+          f"persistent engine: "
+          + (f"RTF {ph13:.4f}" if ph13 else "not run in this call")
+          + f"; finite, walls unmoved, rigid markers within {rigid:.3e} m, "
+          f"every granular stress inside the cone ({on_cone:.4f} on it), "
+          f"joint violation {viol:.3e}, rut {rut:.2f} mm; the first "
+          f"{CRM_VEHICLE_CPU_OUTER} outer steps against the pencil engine "
+          f"{r:.3f} of the tolerance")
+
+
+def gather_main_path(card):
+    """Phase 15: the neighbour-list (gather) backend: (a) card against
+    CPU, (b) config #4's rigid body at a real size, (c) the dam break at
+    full width, (d) config #5's demo bed on CRM's default engine."""
+    for part, fn in (("a", lambda c: gather_card_vs_cpu()),
+                     ("b", block_at_size), ("c", gather_dam),
+                     ("d", vehicle_gather)):
+        t0 = time.perf_counter()
+        fn(card)
+        print(f"phase 15 ({part}) took {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4852,6 +5310,11 @@ def main():
     t0 = time.perf_counter()
     wheeled_main_path(card)
     print(f"phase 14 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 15: the neighbour-list (gather) backend (no kernel on its path)
+    t0 = time.perf_counter()
+    gather_main_path(card)
+    print(f"phase 15 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,14 @@ wheeled vehicles and rovers (``vehicle``: tires, SCM and rigid terrain,
 powertrain, drivers, ``vehicle_step`` and the closed path-following loop
 ``closed_loop.run_closed_loop`` replayed as a CUDA graph, the DBP rig;
 ``models``: the wheeled decks and the rovers; ``physics.shafts``), plain
-tensor code with no TPU kernel.  Its builders put the model on the card
-unless the caller passes ``device="cpu"``; convex collision shapes,
-tracked vehicles, flexible BCE markers and the CRM gather backend are
-refused.
+tensor code with no TPU kernel; the neighbour-list (gather) backend
+(``dem.neighbors`` on periodic or closed grids; ``fsi.sph.wcsph``,
+``fsi.sph.system.make_sph_advance_fn``, ``fsi.sph.isph``; rigid bodies
+in WCSPH or ISPH, ``fsi.system.fsi_step`` and ``make_fsi_advance_fn``;
+CRM's gather engine, ``fsi.sph.crm.crm_step`` and the default of
+``fsi.crm_terrain.make_crm_fsi_advance_fn``), plain tensor code with no
+TPU kernel.  Its builders put the model on the card unless the caller
+passes ``device="cpu"``; convex collision shapes, tracked vehicles and
+flexible BCE markers are refused, and so are periodic grids on the paths
+that only ever ran closed boxes.
 """

@@ -24,7 +24,7 @@ from torch import Tensor
 from chrono_tpu_torch.collision import narrowphase as nphase
 from chrono_tpu_torch.collision.cell_list import (
     GridSpec, build_feature_table, cell_ijk, neighbor_feature_rows,
-    topk_select,
+    refuse_periodic, topk_select,
 )
 from chrono_tpu_torch.core import quaternion as Q
 from chrono_tpu_torch.physics.body import BodyState
@@ -151,6 +151,7 @@ class CollisionModel:
 
     def __post_init__(self):
         refuse_convex(self.convex)
+        refuse_periodic(self.grid, "the contact pipeline")
 
     @property
     def use_rolling(self) -> bool:

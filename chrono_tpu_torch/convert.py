@@ -3,7 +3,8 @@
 The JAX package keeps ``DEMParams`` / ``DEMMaterial`` / ``DEMBoundaries``
 (planes, cylinders, spheres, cones, wheels) / ``GridSpec`` / ``SPHParams`` /
 ``SPHState`` / ``CRMParams`` / ``CRMState`` / ``CRMFSIState`` /
-``ActiveDomainSpec`` / ``NSCPencilParams`` and the
+``ActiveDomainSpec`` / ``NeighborList`` / ``FSIState`` /
+``NSCPencilParams`` and the
 multibody ``Model`` / ``BodyState``, the contact pipeline's
 ``CollisionModel`` / ``Contacts`` and ``SMCParams`` as pytrees of arrays and
 static fields.
@@ -31,9 +32,11 @@ from chrono_tpu_torch.collision.cell_list import GridSpec
 from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
+from chrono_tpu_torch.dem.neighbors import NeighborList
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
 from chrono_tpu_torch.fsi.active import ActiveDomainSpec
 from chrono_tpu_torch.fsi.crm_terrain import CRMFSIState
+from chrono_tpu_torch.fsi.system import FSIState
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 from chrono_tpu_torch.models.rover import Rover
@@ -116,24 +119,44 @@ def grid_from_numpy(leaves: Mapping[str, Any]) -> GridSpec:
 
 def sph_params_from_numpy(leaves: Mapping[str, Any]) -> SPHParams:
     """``SPHParams`` from the JAX ``SPHParams`` fields (floats as numpy
-    scalars, gravity as a (3,) array, the static fields as they are).  The
-    neighbour-list capacities of the gather backend are not carried over;
-    density reinitialisation is not ported and is refused."""
-    if int(leaves.get("density_reinit_every", 0)) != 0:
-        raise NotImplementedError("density reinitialisation is not ported")
+    scalars, gravity as a (3,) array, the static fields as they are).
+    ``density_reinit_every`` comes across as it is; nothing reads it, in
+    either package."""
     floats = ("d0", "h", "rho0", "mu", "c_s", "dt", "eos_gamma",
               "alpha_visc", "delta_sph", "xsph_eps")
     static = ("kernel", "viscosity_model", "boundary_model", "shifting",
               "rebuild_every", "integrator")
+    ints = ("max_neighbors", "max_per_cell", "density_reinit_every")
     return SPHParams(
         gravity=tuple(float(g) for g in np.asarray(leaves["gravity"])),
         **{k: _scalar(leaves[k]) for k in floats},
-        **{k: leaves[k] for k in static if k in leaves})
+        **{k: leaves[k] for k in static if k in leaves},
+        **{k: int(leaves[k]) for k in ints if k in leaves})
+
+
+def neighbor_list_from_numpy(leaves: Mapping[str, Any], *, device
+                             ) -> NeighborList:
+    """``dem.neighbors.NeighborList`` on ``device`` from the JAX
+    ``NeighborList`` fields (``idx`` int32, ``valid`` bool, ``overflow``
+    () int32)."""
+    return NeighborList(
+        idx=torch.as_tensor(np.array(leaves["idx"], np.int32),
+                            device=device),
+        valid=torch.as_tensor(np.array(leaves["valid"], bool),
+                              device=device),
+        overflow=torch.as_tensor(np.array(leaves["overflow"], np.int32),
+                                 device=device))
+
+
+def _nbr(leaves: Mapping[str, Any], device):
+    nbr = leaves.get("nbr")
+    return None if nbr is None else neighbor_list_from_numpy(nbr,
+                                                             device=device)
 
 
 def sph_state_from_numpy(leaves: Mapping[str, Any], *, device) -> SPHState:
-    """``SPHState`` on ``device`` from the JAX ``SPHState`` fields (its
-    neighbour list, if given, is not carried over)."""
+    """``SPHState`` on ``device`` from the JAX ``SPHState`` fields, its
+    neighbour list (a mapping of its fields) if given."""
     def t(name, dtype):
         return torch.as_tensor(np.array(leaves[name]), dtype=dtype,
                                device=device)
@@ -142,29 +165,40 @@ def sph_state_from_numpy(leaves: Mapping[str, Any], *, device) -> SPHState:
                     rho=t("rho", torch.float32), kind=t("kind", torch.int32),
                     body_id=t("body_id", torch.int32),
                     bce_local=t("bce_local", torch.float32),
-                    time=t("time", torch.float32))
+                    time=t("time", torch.float32), nbr=_nbr(leaves, device))
 
 
 def crm_params_from_numpy(leaves: Mapping[str, Any]) -> CRMParams:
-    """``CRMParams`` from the JAX ``CRMParams`` fields.  Dilatancy is read
-    by nothing (the return is non-associated) and a non-zero one is
-    refused."""
-    if _scalar(leaves.get("dilatancy", 0.0)) != 0.0:
-        raise NotImplementedError("dilatancy (tan ψ ≠ 0) is not ported")
+    """``CRMParams`` from the JAX ``CRMParams`` fields.  ``dilatancy``
+    comes across as it is; nothing reads it, in either package (the
+    return is non-associated)."""
     return CRMParams(**{f: _scalar(leaves[f]) for f in (
-        "youngs", "poisson", "friction_angle", "cohesion") if f in leaves})
+        "youngs", "poisson", "friction_angle", "cohesion", "dilatancy")
+        if f in leaves})
 
 
 def crm_state_from_numpy(leaves: Mapping[str, Any], *, device) -> CRMState:
-    """``CRMState`` on ``device`` from the JAX ``CRMState`` fields (its
-    neighbour list, if given, is not carried over)."""
+    """``CRMState`` on ``device`` from the JAX ``CRMState`` fields, its
+    neighbour list (a mapping of its fields) if given."""
     def t(name, dtype):
         return torch.as_tensor(np.array(leaves[name]), dtype=dtype,
                                device=device)
 
     return CRMState(**{f: t(f, torch.float32) for f in (
         "pos", "vel", "rho", "bce_local", "tau_d", "tau_o", "time")},
-        kind=t("kind", torch.int32), body_id=t("body_id", torch.int32))
+        kind=t("kind", torch.int32), body_id=t("body_id", torch.int32),
+        nbr=_nbr(leaves, device))
+
+
+def fsi_state_from_numpy(leaves: Mapping[str, Any], *, device) -> FSIState:
+    """``fsi.system.FSIState`` on ``device`` from the JAX ``FSIState``
+    fields: ``bodies`` as for :func:`body_state_from_numpy`, ``fluid`` as
+    for :func:`sph_state_from_numpy`, ``time``."""
+    return FSIState(
+        bodies=body_state_from_numpy(leaves["bodies"], device=device),
+        fluid=sph_state_from_numpy(leaves["fluid"], device=device),
+        time=torch.as_tensor(np.array(leaves["time"], np.float32),
+                             device=device))
 
 
 def crm_fsi_state_from_numpy(leaves: Mapping[str, Any], *, device):

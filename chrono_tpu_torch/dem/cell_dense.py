@@ -34,7 +34,9 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from chrono_tpu_torch.collision.cell_list import GridSpec, cell_index
+from chrono_tpu_torch.collision.cell_list import (
+    GridSpec, cell_index, refuse_periodic,
+)
 from chrono_tpu_torch.dem.bc import DEMBoundaries
 from chrono_tpu_torch.dem.forces import wall_forces
 from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
@@ -66,6 +68,7 @@ def _sort_bin(grid: GridSpec, capacity: int, pos):
     """The stable sort of particles by cell: ``(order, cell of each sorted
     particle, its rank in the cell, overflow)``, int64 but the overflow
     (() int32, max occupancy − C, 0 when it fits)."""
+    refuse_periodic(grid, "the DEM cell-slot and row paths")
     n = pos.shape[0]
     ids = cell_index(grid, pos)
     order = torch.argsort(ids, stable=True)
@@ -250,6 +253,7 @@ def make_cell_dense_advance(params: DEMParams, bcs: DEMBoundaries,
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown cell-dense backend {backend!r}")
+    refuse_periodic(grid, "the DEM cell-slot and row paths")
     if params.friction_mode == "multi_step":
         params = replace(params, friction_mode="single_step")
     steps = params.rebuild_every

@@ -68,8 +68,11 @@ def compact_indices(spec: ActiveDomainSpec, ext):
 
 
 def _per_marker(state, n):
+    """The per-marker tensor fields (not the neighbour list, which the
+    gather engine rebuilds on the sub-state before any use)."""
     return [f.name for f in dataclasses.fields(state)
-            if getattr(state, f.name).dim() >= 1
+            if isinstance(getattr(state, f.name), torch.Tensor)
+            and getattr(state, f.name).dim() >= 1
             and getattr(state, f.name).shape[0] == n]
 
 

@@ -4,16 +4,17 @@ rigid-body coupling.
 Counterpart of part of ``chrono_tpu/fsi/bce.py``.  The generators are
 host-side numpy, copied rather than imported, because importing
 ``chrono_tpu.fsi`` imports JAX; the code is the same so both packages give
-the same points, bit for bit: ``box_wall_markers`` and the rigid-body
+the same points, bit for bit: ``box_wall_markers``, the rigid-body
 shells ``sphere_body_markers``, ``box_body_markers`` and
-``cylinder_body_markers``.  At run time, ``update_rigid_markers`` moves the
+``cylinder_body_markers``, and the scene builders ``heightmap_markers``,
+``cylinder_container_markers`` and ``cylinder_fluid_fill``.  At run time, ``update_rigid_markers`` moves the
 rigid markers with their bodies and ``rigid_body_forces`` reduces the
 granular or fluid reaction on them to per-body forces and torques.  The
 JAX package sums that reduction with ``.at[b].add``; here each body's
 markers are summed in a fixed order with no atomics, through one stable
-sort of the markers by body (``utils.segment``).  Heightmap, mesh, OBJ and
-cylindrical-container markers are not ported (ROADMAP Queue 1 items 3, 6
-and 8).
+sort of the markers by body (``utils.segment``).  The mesh and OBJ
+generators (``mesh_body_markers``, ``obj_body_markers``) wait for the
+port of ``io/`` and the native sampler (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -158,3 +159,91 @@ def rigid_body_forces(params, dv_dt, kind, body_id, pos, body_x, n_bodies):
     seg = sorted_segments(b, n_bodies, keep=is_rigid)
     both = segment_sum_sorted(seg, torch.cat([f_m, tau_m], dim=1))
     return both[:, :3].contiguous(), both[:, 3:].contiguous()
+
+
+def heightmap_markers(heights, origin, dx, spacing, layers=3,
+                      depth=None):
+    """A scene from a heightmap: ``heights`` (Nx, Ny) is the surface z(x,
+    y) on a grid of pitch ``dx`` from ``origin`` (x0, y0).  Returns
+    ``(bce, fluid)``: ``layers`` BCE sheets under the surface, ``spacing``
+    apart, and with ``depth`` a fluid block filling [surface, surface +
+    depth] (else None)."""
+    heights = np.asarray(heights, float)
+    nx, ny = heights.shape
+    x = origin[0] + np.arange(nx) * dx
+    y = origin[1] + np.arange(ny) * dx
+    xs = np.arange(x[0], x[-1] + 0.5 * spacing, spacing)
+    ys = np.arange(y[0], y[-1] + 0.5 * spacing, spacing)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+
+    def interp(px, py):
+        ix = np.clip((px - x[0]) / dx, 0, nx - 1 - 1e-9)
+        iy = np.clip((py - y[0]) / dx, 0, ny - 1 - 1e-9)
+        i0, j0 = ix.astype(int), iy.astype(int)
+        fx, fy = ix - i0, iy - j0
+        h00 = heights[i0, j0]
+        h10 = heights[np.minimum(i0 + 1, nx - 1), j0]
+        h01 = heights[i0, np.minimum(j0 + 1, ny - 1)]
+        h11 = heights[np.minimum(i0 + 1, nx - 1), np.minimum(j0 + 1, ny - 1)]
+        return ((1 - fx) * (1 - fy) * h00 + fx * (1 - fy) * h10
+                + (1 - fx) * fy * h01 + fx * fy * h11)
+
+    hz = interp(gx, gy)
+    bce = np.concatenate([
+        np.stack([gx, gy, hz - (l + 0.5) * spacing], -1).reshape(-1, 3)
+        for l in range(layers)], axis=0)
+    fluid = None
+    if depth is not None:
+        cols = []
+        for k in range(int(np.ceil(depth / spacing))):
+            z = hz + (k + 0.5) * spacing
+            keep = z <= hz + depth
+            cols.append(np.stack([gx[keep], gy[keep], z[keep]], -1))
+        fluid = np.concatenate(cols, axis=0)
+    return bce, fluid
+
+
+def cylinder_container_markers(radius, height, spacing, layers=3,
+                               top_open=True):
+    """BCE markers of a cylindrical container (side wall, floor and, with
+    ``top_open=False``, a lid), axis +z, floor at z = 0; the layers grow
+    outward, so the innermost shell sits at ``radius``."""
+    pts = []
+    nz = max(2, int(round(height / spacing)) + 1)
+    for l in range(layers):
+        r = radius + l * spacing
+        ntheta = max(8, int(round(2 * np.pi * r / spacing)))
+        th = 2 * np.pi * np.arange(ntheta) / ntheta
+        ring = np.stack([r * np.cos(th), r * np.sin(th),
+                         np.zeros(ntheta)], axis=1)
+        for k in range(nz):
+            pts.append(ring + np.array([0.0, 0.0, k * height / (nz - 1)]))
+    caps = [(-l * spacing) for l in range(1, layers + 1)]
+    if not top_open:
+        caps += [height + l * spacing for l in range(1, layers + 1)]
+    for z in caps:
+        nr = int(np.floor((radius + (layers - 0.5) * spacing) / spacing))
+        for i in range(nr + 1):
+            r = i * spacing
+            ntheta = max(1, int(round(2 * np.pi * max(r, spacing * 0.5)
+                                      / spacing))) if i else 1
+            th = 2 * np.pi * np.arange(ntheta) / ntheta
+            pts.append(np.stack([r * np.cos(th), r * np.sin(th),
+                                 np.full(ntheta, z)], axis=1))
+    return np.concatenate(pts, axis=0)
+
+
+def cylinder_fluid_fill(radius, depth, spacing, inner_radius=0.0, z0=None):
+    """Fluid markers filling a cylindrical (or annular) column, axis +z,
+    from half a spacing above the floor."""
+    z0 = 0.5 * spacing if z0 is None else z0
+    xs = np.arange(-radius + spacing / 2, radius, spacing)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    r2 = X**2 + Y**2
+    keep = (r2 < (radius - spacing / 2) ** 2)
+    if inner_radius > 0:
+        keep &= r2 > (inner_radius + spacing / 2) ** 2
+    base = np.stack([X[keep], Y[keep]], axis=1)
+    zs = np.arange(z0, depth, spacing)
+    return np.concatenate([np.concatenate(
+        [base, np.full((len(base), 1), z)], axis=1) for z in zs], axis=0)

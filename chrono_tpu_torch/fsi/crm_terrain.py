@@ -6,14 +6,16 @@ Counterpart of ``chrono_tpu/fsi/crm_terrain.py``: the box terrain patch
 ``crm_fsi_step`` (BCE kinematics from the body states, the CRM substeps,
 the reduction of the granular reaction on the BCE markers to per-body
 forces and torques, then one multibody step with those loads) and its two
-drivers: ``make_crm_fsi_advance_fn`` (the terrain binned and unbinned
-every outer step, optionally over the active domains of ``fsi.active``)
-and ``make_crm_fsi_advance_persistent`` (the terrain kept binned for
+drivers: ``make_crm_fsi_advance_fn`` (every outer step on its own,
+optionally over the active domains of ``fsi.active``) and
+``make_crm_fsi_advance_persistent`` (the terrain kept binned for
 ``rebuild_outer`` outer steps, the BCE update and the reduction done on
-the sorted planes).  The substeps run the CRM kernels of
-``ops.cuda.crm_substep`` through the engine of ``fsi.sph.crm_pencil``; the
-JAX package's gather backend is not ported (ROADMAP Queue 1 item 6) and
-is refused.  Every reduction sums in a fixed order with no atomics.
+the sorted planes).  The substeps run on one of two engines: the gather
+backend (``fsi.sph.crm``'s ``crm_step`` on a neighbour list rebuilt every
+outer step, :func:`gather_substeps`), the JAX package's default, or the
+CRM kernels of ``ops.cuda.crm_substep`` through the engine of
+``fsi.sph.crm_pencil``.  Every reduction sums in a fixed order with no
+atomics.
 
 On the card with the direct solver the multibody step is captured once in
 a ``torch.cuda.CUDAGraph`` and replayed every outer step (the step builds
@@ -37,7 +39,8 @@ from chrono_tpu_torch.fsi.active import (
     scatter_state,
 )
 from chrono_tpu_torch.fsi.sph.crm import (
-    CRMParams, CRMState, lithostatic_init, make_crm_state,
+    CRMParams, CRMState, crm_forces, crm_step, lithostatic_init,
+    make_crm_state, rebuild_crm_neighbors,
 )
 from chrono_tpu_torch.fsi.sph.crm_pencil import (
     cells_to_crm_state, make_crm_engine, make_crm_substeps_pencil,
@@ -56,12 +59,6 @@ from chrono_tpu_torch.physics.system import (
 from chrono_tpu_torch.utils.samplers import grid_sample_box
 from chrono_tpu_torch.utils.segment import segment_reduce_sum
 
-GATHER_REFUSAL = ("the CRM gather backend (neighbour lists) is not ported "
-                  "(ROADMAP Queue 1 item 6): use engine='pencil', or pass "
-                  "substeps_fn from fsi.sph.crm_pencil.make_crm_substeps_"
-                  "pencil")
-
-
 def make_crm_terrain_state(params, crm: CRMParams, size, depth,
                            spacing=None, rigid_pts=None, rigid_body_ids=None,
                            rigid_local=None, carve_fn=None, surface_fn=None,
@@ -77,7 +74,9 @@ def make_crm_terrain_state(params, crm: CRMParams, size, depth,
     surface)); ``air``: headroom above the bed in d0 units covered by the
     grid (and by the side walls, capped at 20·d0); ``margin``: the grid's
     margin beyond the bed box, in d0 units.  Rigid BCE markers
-    (``rigid_pts``) are not ported and raise.  Returns (CRMState, GridSpec).
+    (``rigid_pts`` in the world, with their bodies ``rigid_body_ids`` and
+    body-local offsets ``rigid_local``) follow the bed and the walls.
+    Returns (CRMState, GridSpec).
     """
     d0 = float(spacing if spacing is not None else params.d0)
     Lx, Ly = float(size[0]), float(size[1])
@@ -204,6 +203,20 @@ def _drive_loads(f_ext_fn, t, bodies, f_b, tau_local):
             tau_local if tau_drv is None else tau_local + tau_drv)
 
 
+def gather_substeps(params, crm: CRMParams, grid: GridSpec):
+    """``substeps(st, n) → (st, dv, overflow)`` on the gather backend: the
+    neighbour list rebuilt once, ``n`` ``crm_step``s on it, and the
+    granular reaction ``crm_forces`` at the final state on the same list,
+    as the JAX package's ``crm_fsi_step`` runs them."""
+    def substeps(st: CRMState, n_substeps: int):
+        st = rebuild_crm_neighbors(params, grid, st)
+        for _ in range(n_substeps):
+            st = crm_step(params, crm, grid, st)
+        return st, crm_forces(params, crm, grid, st), st.nbr.overflow
+
+    return substeps
+
+
 def crm_fsi_step(model: Model, params, crm: CRMParams, grid: GridSpec,
                  state: CRMFSIState, n_substeps: int, wheel_bodies,
                  active: ActiveDomainSpec | None = None,
@@ -217,14 +230,14 @@ def crm_fsi_step(model: Model, params, crm: CRMParams, grid: GridSpec,
     ``wheel_bodies``: the indices of the bodies carrying BCE markers (the
     anchors of the active boxes).  ``f_ext_fn(t, bodies) → (f_world,
     tau_local)`` adds the caller's loads (drive torques).
-    ``substeps_fn(st, n) → (st, dv, overflow)`` runs the substeps: the
-    port's is ``fsi.sph.crm_pencil.make_crm_substeps_pencil``; without it
-    the JAX package steps its gather backend, which is not ported
-    (ROADMAP Queue 1 item 6), and this raises.  ``mbs_step`` (an
-    :class:`MBSStep`) replaces the eager multibody step; ``info`` is then
-    None.  Returns (state, overflow () int32, info)."""
+    ``substeps_fn(st, n) → (st, dv, overflow)`` runs the substeps (the
+    CRM kernels' is ``fsi.sph.crm_pencil.make_crm_substeps_pencil``);
+    without it the gather backend runs them (:func:`gather_substeps`), as
+    in the JAX package.  ``mbs_step`` (an :class:`MBSStep`) replaces the
+    eager multibody step; ``info`` is then None.  Returns (state, overflow
+    () int32, info)."""
     if substeps_fn is None:
-        raise NotImplementedError(GATHER_REFUSAL)
+        substeps_fn = gather_substeps(params, crm, grid)
     bodies, terrain = state.bodies, state.terrain
 
     # 1. BCE marker kinematics from the current body states
@@ -276,23 +289,25 @@ def make_crm_fsi_advance_fn(model: Model, params, crm: CRMParams,
                             pencil_capacity: int = 16, pencil_Bxy: int = 4,
                             *, device):
     """``advance(state, n_outer) → (state, overflow)``: ``n_outer`` calls
-    of :func:`crm_fsi_step` on ``device``, the terrain binned and unbinned
-    every outer step.
+    of :func:`crm_fsi_step` on ``device``.
 
-    ``engine``: "pencil" runs the substeps on the CRM kernels
-    (``make_crm_substeps_pencil``, capacity ``pencil_capacity``);
-    "gather", the JAX package's default, is not ported (ROADMAP Queue 1
-    item 6) and raises.  ``pencil_Bxy`` is the TPU pencil's lane blocking:
-    a GPU thread takes one marker, so it changes nothing here.  The
-    multibody step is an :class:`MBSStep` (a graph replay on the card with
-    the direct solver).  ``overflow`` is the largest cell, neighbour-list
-    or active-buffer excess over the call."""
+    ``engine``: "gather", the JAX package's default, runs the substeps on
+    a neighbour list rebuilt every outer step (:func:`gather_substeps`);
+    "pencil" on the CRM kernels, the terrain binned and unbinned every
+    outer step (``make_crm_substeps_pencil``, capacity
+    ``pencil_capacity``).  ``pencil_Bxy`` is the TPU pencil's lane
+    blocking: a GPU thread takes one marker, so it changes nothing here.
+    The multibody step is an :class:`MBSStep` (a graph replay on the card
+    with the direct solver).  ``overflow`` is the largest cell,
+    neighbour-list or active-buffer excess over the call."""
     if engine == "gather":
-        raise NotImplementedError(GATHER_REFUSAL)
-    if engine != "pencil":
+        substeps_fn = gather_substeps(params, crm, grid)
+    elif engine == "pencil":
+        substeps_fn = make_crm_substeps_pencil(params, crm, grid,
+                                               pencil_capacity,
+                                               device=device)
+    else:
         raise ValueError(f"unknown CRM engine {engine!r}")
-    substeps_fn = make_crm_substeps_pencil(params, crm, grid,
-                                           pencil_capacity, device=device)
     mbs_step = MBSStep(model, params.dt * n_substeps, mbs_settings)
 
     def advance(state: CRMFSIState, n_outer: int):

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from chrono_tpu_torch.collision.cell_list import GridSpec
+from chrono_tpu_torch.collision.cell_list import GridSpec, refuse_periodic
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.kernels import KERNELS
 from chrono_tpu_torch.fsi.sph.pencil import bin_to_cells
@@ -92,6 +92,7 @@ def make_crm_engine(params, crm: CRMParams, grid: GridSpec,
     The JAX engine's contract, with the cell table passed beside the planes
     (a pencil layout carries it in its shape).  Cells must be at least the
     kernel support 2h, so that one ring of 27 cells covers it."""
+    refuse_periodic(grid, "the CRM cell-sorted engine")
     consts = crm_static_params(params, crm)
     support = KERNELS[params.kernel][2] * float(params.h)
     if float(grid.cell_size) < support - 1e-9:

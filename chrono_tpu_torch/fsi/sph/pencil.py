@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from chrono_tpu_torch.collision.cell_list import GridSpec, cell_index
+from chrono_tpu_torch.collision.cell_list import (
+    GridSpec, cell_index, refuse_periodic,
+)
 from chrono_tpu_torch.fsi.sph.state import FLUID, SPHParams, SPHState
 from chrono_tpu_torch.ops.cuda.sph_substep import (
     N_ADAMI, PX, PZ, RHO, VX, VZ, SortedCells, adami_walk_order,
@@ -72,6 +74,7 @@ def make_sph_advance_pencil(params: SPHParams, grid: GridSpec,
     cells covers it; the grid is not periodic.  The state is moved to
     ``device``.
     """
+    refuse_periodic(grid, "the SPH cell-sorted engine")
     consts = sph_static_params(params)
     support = 2.0 * float(params.h)
     if float(grid.cell_size) < support - 1e-9:

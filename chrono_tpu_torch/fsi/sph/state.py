@@ -1,10 +1,12 @@
 """SPH marker state and parameters.
 
 Counterpart of ``chrono_tpu/fsi/sph/state.py``: one flat marker population
-with a type code and a body attachment, so fluid and boundary markers flow
-through the same kernels with masks.  The JAX ``SPHState`` also carries a
-neighbour list for its gather backend; the cell-sorted path ported here
-does not use one, so this ``SPHState`` has no ``nbr`` field.
+with a type code and a body attachment, so fluid, fixed-boundary and
+rigid-body BCE markers flow through the same passes with masks.  The
+gather backend (``fsi.sph.system``, ``fsi.sph.isph``, ``fsi.sph.crm``)
+keeps its neighbour list on the state as ``nbr``; the cell-sorted engines
+(``fsi.sph.pencil``, ``fsi.sph.crm_pencil``) bin the markers themselves
+and leave ``nbr`` as it is (None unless a gather step set it).
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ FROZEN = 4       # outside the active domain: a neighbour, not integrated
 @dataclass(frozen=True)
 class SPHParams:
     """Fluid and discretisation parameters, as Python floats and static
-    fields (the JAX ``SPHParams`` holds the floats as traced leaves).  The
-    gather backend's neighbour-list capacities (``max_neighbors``,
-    ``max_per_cell``) and density reinitialisation are not ported."""
+    fields (the JAX ``SPHParams`` holds the floats as traced leaves).
+    ``max_neighbors`` and ``max_per_cell`` are the gather backend's
+    neighbour-list capacities.  ``density_reinit_every`` is carried as the
+    JAX package declares it and, as there, read by nothing."""
 
     d0: float               # initial particle spacing [m]
     h: float                # smoothing length = h_mult · d0
@@ -44,8 +47,11 @@ class SPHParams:
     viscosity_model: str = "laminar"   # laminar | artificial
     boundary_model: str = "adami"      # adami | holmes
     shifting: str = "xsph"             # xsph | ppst | none
+    max_neighbors: int = 64
+    max_per_cell: int = 32
     rebuild_every: int = 4
     integrator: str = "symplectic"     # symplectic | rk2 | euler
+    density_reinit_every: int = 0      # read by nothing, as in JAX
 
     def replace(self, **changes) -> "SPHParams":
         return dataclasses.replace(self, **changes)
@@ -53,7 +59,9 @@ class SPHParams:
 
 @dataclass(frozen=True)
 class SPHState:
-    """All markers of an SPH problem (fluid + boundary)."""
+    """All markers of an SPH problem (fluid, boundary and rigid BCE), and
+    the gather backend's neighbour list (``dem.neighbors.NeighborList``)
+    when it has built one."""
 
     pos: torch.Tensor        # (N, 3) float32
     vel: torch.Tensor        # (N, 3) float32
@@ -62,6 +70,7 @@ class SPHState:
     body_id: torch.Tensor    # (N,) int32 rigid body index, else -1
     bce_local: torch.Tensor  # (N, 3) body-local marker offset
     time: torch.Tensor       # () float32
+    nbr: object = None       # NeighborList or None
 
     @property
     def n(self) -> int:
@@ -72,7 +81,8 @@ class SPHState:
 
     def to(self, device) -> "SPHState":
         """Every field on ``device``."""
-        return SPHState(**{f.name: getattr(self, f.name).to(device)
+        return SPHState(**{f.name: None if getattr(self, f.name) is None
+                           else getattr(self, f.name).to(device)
                            for f in dataclasses.fields(self)})
 
 

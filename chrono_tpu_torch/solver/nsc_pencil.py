@@ -29,7 +29,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from chrono_tpu_torch.collision.cell_list import GridSpec
+from chrono_tpu_torch.collision.cell_list import GridSpec, refuse_periodic
 from chrono_tpu_torch.fsi.sph.pencil import bin_to_cells
 from chrono_tpu_torch.ops.cuda.nsc_detect import (
     DetectConsts, nsc_detect, reverse_table,
@@ -204,6 +204,7 @@ def make_nsc_pencil_advance(p: NSCPencilParams, grid: GridSpec, walls,
     ``spin`` by default).  The cells must be at least 2r + envelope wide
     for the 27-cell stencil to see every contact, as in the JAX package.
     """
+    refuse_periodic(grid, "the NSC pencil")
     walls = tuple(walls)
     if len(walls) > MAX_WALLS:
         raise ValueError(f"at most {MAX_WALLS} walls")

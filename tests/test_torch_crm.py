@@ -440,11 +440,23 @@ def test_engine_rejects_what_the_kernels_do_not_implement():
 
 
 def test_conversion_refuses_dilatancy():
-    """Nothing reads tan ψ (the return is non-associated): zero converts,
-    anything else is refused."""
+    """Nothing reads tan ψ, in either package (the return is
+    non-associated): a non-zero dilatancy converts and is carried, and a
+    substep on either engine gives the same state, bit for bit, as with
+    zero."""
     _, crm = _jax_soil()
     tc = crm_params_from_numpy(_leaves(crm))
-    assert tc.cohesion == 2000.0 and not hasattr(tc, "dilatancy")
-    with pytest.raises(NotImplementedError):
-        crm_params_from_numpy(_leaves(dataclasses.replace(
-            crm, dilatancy=jnp.asarray(0.1))))
+    assert tc.cohesion == 2000.0 and tc.dilatancy == 0.0
+    td = crm_params_from_numpy(_leaves(dataclasses.replace(
+        crm, dilatancy=jnp.asarray(0.1))))
+    assert td.dilatancy == pytest.approx(0.1)
+    assert td.replace(dilatancy=0.0) == tc
+    params, _, grid, state = _jax_bed()
+    tp, _, tg, ts = _port(params, crm, grid, state)
+    tp = tp.replace(rebuild_every=1)
+    for advance in (t_crm.make_crm_advance_fn, make_crm_advance_pencil):
+        a, b = (advance(tp, soil, tg, device="cpu")(ts, 1)[0]
+                for soil in (tc, td))
+        for f in ("pos", "vel", "rho", "tau_d", "tau_o"):
+            assert torch.equal(getattr(a, f), getattr(b, f))
+        assert not torch.equal(a.vel, ts.vel)

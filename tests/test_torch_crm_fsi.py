@@ -713,16 +713,12 @@ def test_rigid_markers_follow_their_bodies():
 
 
 def test_refusals():
-    """The gather engine (the JAX default) and a step without substeps
-    name ROADMAP item 6; flexible markers name item 8; an unknown dv_mode
-    or engine is an error."""
+    """Flexible markers name ROADMAP item 8; an unknown dv_mode or engine
+    is an error.  The gather engine (the JAX default, and a step without
+    substeps) runs: tests/test_torch_crm_gather.py holds it to JAX."""
     sc = _port_wheel_scene()
     args = (sc["model"], sc["params"], sc["soil"], sc["grid"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_ct.make_crm_fsi_advance_fn(*args, N_SUB, sc["wheels"],
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_ct.crm_fsi_step(*args, sc["state"], N_SUB, sc["wheels"])
+    t_ct.make_crm_fsi_advance_fn(*args, N_SUB, sc["wheels"], device="cpu")
     with pytest.raises(ValueError):
         t_ct.make_crm_fsi_advance_fn(*args, N_SUB, sc["wheels"],
                                      engine="flat", device="cpu")

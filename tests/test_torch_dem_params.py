@@ -101,8 +101,12 @@ def test_cell_ijk_and_index_match():
 
 
 def test_periodic_grid_raises():
-    with pytest.raises(NotImplementedError):
-        t_cell_list.GridSpec(periodic=(True, False, False))
+    """A periodic grid is a grid (the neighbour lists wrap it); the DEM
+    cell-slot and row paths run non-periodic boxes only and refuse it."""
+    grid = t_cell_list.GridSpec(periodic=(True, False, False))
+    pos = torch.zeros((4, 3))
+    with pytest.raises(NotImplementedError, match="periodic grids"):
+        t_cell_dense.to_cells(grid, 8, pos, pos, pos)
 
 
 def test_box_boundaries_match():

@@ -277,9 +277,24 @@ def test_advance_rejects_what_the_kernels_do_not_implement():
                    dict(integrator="rk2"), dict(boundary_model="holmes")):
         with pytest.raises(ValueError):
             make_sph_advance_pencil(tp.replace(**change), tg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sph_params_from_numpy(_leaves(params.replace(
-            density_reinit_every=20)))
+
+
+def test_density_reinit_every_is_carried_unread():
+    """``density_reinit_every`` is read by nothing in either package: a
+    non-zero value converts and is carried, and a cycle on either engine
+    gives the same state, bit for bit, as with zero."""
+    params, grid, state = _mini_dam()
+    tp, tg, ts = _port(params, grid, state)
+    tr = sph_params_from_numpy(_leaves(params.replace(
+        density_reinit_every=20)))
+    assert tr.density_reinit_every == 20 and tp.density_reinit_every == 0
+    assert tr.replace(density_reinit_every=0) == tp
+    for advance in (t_system.make_sph_advance_fn, make_sph_advance_pencil):
+        a, b = (advance(p.replace(rebuild_every=1), tg, device="cpu")(ts, 1)
+                [0] for p in (tp, tr))
+        for f in ("pos", "vel", "rho"):
+            assert torch.equal(getattr(a, f), getattr(b, f))
+        assert not torch.equal(a.pos, ts.pos)
 
 
 def test_markers_past_the_capacity_are_carried_through():
