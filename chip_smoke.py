@@ -189,7 +189,27 @@ once) and then runs:
    and one substep against phase 4's CUDA sweeps; (d) config #5's demo
    bed on CRM's default engine (``make_crm_fsi_advance_fn``, gather):
    bench_crm's 6 intervals with phase 13's checks and RTF, and the first
-   10 outer steps against the pencil engine.
+   10 outer steps against the pencil engine;
+16. the DEM system on the neighbour list (no kernel on its path): (a) the
+   card against the port on the CPU after 3 cycles, and two card runs bit
+   for bit: each of the four integrators with each friction mode on
+   tests/test_dem.py's 1 m box, Schwartz and elastic–plastic rolling
+   against phase 9's walls without the wheel, the user force model,
+   ``sphere_mesh_forces`` on a ramp of two triangles, and 20 outer steps
+   of tests/test_granular_terrain.py's coupled wheel; (b) ``bench.py``'s
+   gather engine at 1,000,000 spheres through ``make_dem_state`` and
+   ``make_advance_fn`` (12 neighbours, 16 a cell, skin 0.3, 100 substeps
+   a cycle), 1 warm-up and 2 timed cycles with phase 2's checks,
+   particle-steps/s, peak memory and one profiled cycle (the rebuild and
+   the substeps apart); (c) the same spheres through ``DEMSystem`` with
+   its defaults (multi-step friction, centred differences, dt from
+   ``suggest_step_size``), two timed ``advance`` calls of a cycle; (d)
+   demos/demo_dem_dam_break.py on the port (2,380 spheres, 12 frames of
+   0.05 s, PLY frames through ``export_particle_sequence``) held to the
+   JAX demo's count, dt, fronts and kinetic energies
+   (tools/dem_dam_break_reference.py); (e) the granular rig's 550 outer
+   steps with its test's assertions, and the same wheel on a 2.0 × 0.5 ×
+   0.1 m bed of r = 5 mm spheres, 200 timed outer steps of 20 substeps.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -201,9 +221,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import json
+import os
 import subprocess
+import tempfile
 import time
 from dataclasses import replace
 
@@ -220,7 +243,14 @@ from chrono_tpu_torch.dem.cell_dense import (
     pair_coefs, substep_coefs, to_cells, to_rows, wall_rows,
 )
 from chrono_tpu_torch.dem.forces import _cross, _pair_force
+from chrono_tpu_torch.dem.mesh import (
+    bin_triangles_numpy, make_triangle_mesh, sphere_mesh_forces,
+)
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.dem.system import (
+    DEMSystem, SubstepBlock, make_advance_fn, make_dem_state,
+    rebuild_neighbors,
+)
 from chrono_tpu_torch.fsi import bce as fsi_bce
 from chrono_tpu_torch.fsi.active import ActiveDomainSpec
 from chrono_tpu_torch.fsi.crm_terrain import (
@@ -286,7 +316,8 @@ from chrono_tpu_torch.solver import vi as tvi
 from chrono_tpu_torch.solver.nsc_pencil import (
     NSCPencilParams, make_nsc_pencil_advance, nsc_static_params,
 )
-from chrono_tpu_torch.utils.samplers import grid_sample_box
+from chrono_tpu_torch.io import export_particle_sequence
+from chrono_tpu_torch.utils.samplers import grid_sample_box, hcp_sample_box
 from chrono_tpu_torch.vehicle.suspension import (
     WishboneHardpoints, add_double_wishbone_corner,
 )
@@ -304,6 +335,9 @@ from chrono_tpu_torch.vehicle import (
 )
 from chrono_tpu_torch.vehicle.closed_loop import (
     closed_loop_step, run_closed_loop,
+)
+from chrono_tpu_torch.vehicle.granular_terrain import (
+    GranularFSIState, make_granular_advance_fn, make_granular_terrain_state,
 )
 
 DEV = torch.device("cuda", 0)
@@ -5156,6 +5190,635 @@ def gather_main_path(card):
         print(f"phase 15 ({part}) took {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------- phase 16
+
+DEM_INTEGRATORS = ("forward_euler", "centered_difference",
+                   "extended_taylor", "chung")
+DEM_FRICTION = ("frictionless", "single_step", "multi_step")
+DEM_ROLLING = ("schwartz", "elastic_plastic")
+DEM_CYCLES = 3
+# the North-star tolerances: positions in m, velocities in m/s; spins in
+# rad/s at the velocities' tolerance over the radius (a surface speed of
+# 1e-4 m/s at r = 5 cm)
+DEM_X_TOL = dict(rtol=1e-4, atol=1e-5)
+DEM_V_TOL = dict(rtol=1e-3, atol=1e-4)
+DEM_W_TOL = dict(rtol=1e-3, atol=2e-3)
+DEM_BOX_MAT = dict(youngs=5e6, poisson=0.3, restitution=0.4, mu_s=0.5)
+DEM_MU_R, DEM_WALL_MU_R = 0.2, 0.1
+# the user-stiffness model's raw coefficients on the 1 m box (K [N/m],
+# Γ [1/s]), stiff enough that the pairs stay shallow at its dt
+DEM_USER_MAT = dict(kn=2e5, gn=40.0, kt=1.5e5, gt=20.0)
+DEM_USER_DT = 2e-4
+
+
+def dem_box_setup(n=256, seed=0, rolling_mode="none",
+                  force_model="mat_based", **system_kw):
+    """tests/test_dem.py's ``make_system`` on its 1 m box (r = 5 cm, ρ =
+    2500, E = 5e6, ν 0.3, e 0.4, μ 0.5, walls alike) with ``DEMSystem``'s
+    defaults unless ``system_kw`` says otherwise; with rolling, μ_r 0.2
+    (walls 0.1); with the user model, ``DEM_USER_MAT`` at dt 2e-4.  ``n``
+    particles on a 0.102 m lattice jittered by ±2 %, with velocities
+    (σ 1 m/s) and spins (σ 10 rad/s) from ``seed``, so that pairs and the
+    floor touch in the first cycle.  Returns the ``DEMSystem`` arguments,
+    the two materials and (pts, vel, omega) as float32 numpy arrays."""
+    system = dict(radius=0.05, density=2500.0, box=((0, 0, 0), (1, 1, 1)),
+                  rolling_mode=rolling_mode, force_model=force_model,
+                  **system_kw)
+    mat, wall = dict(DEM_BOX_MAT), dict(DEM_BOX_MAT)
+    if rolling_mode != "none":
+        mat["mu_r"], wall["mu_r"] = DEM_MU_R, DEM_WALL_MU_R
+    if force_model == "user":
+        mat.update(DEM_USER_MAT)
+        wall.update(DEM_USER_MAT)
+        system.setdefault("dt", DEM_USER_DT)
+    rng = np.random.default_rng(seed)
+    pts = grid_sample_box((0.05, 0.05, 0.05), (0.95, 0.95, 0.6), 0.102,
+                          jitter=0.02, seed=seed + 1)[:n]
+    vel = rng.normal(0.0, 1.0, pts.shape)
+    omega = rng.normal(0.0, 10.0, pts.shape)
+    return dict(system=system, material=mat, wall_material=wall,
+                arrays=tuple(a.astype(np.float32) for a in (pts, vel, omega)))
+
+
+def dem_system_of(setup, device=None, dtype=torch.float32):
+    """The port's ``DEMSystem`` of a :func:`dem_box_setup` with its
+    particles created (spins set), on ``device`` (the card by default)."""
+    sys_ = DEMSystem(**setup["system"], dtype=dtype,
+                     device=device or DEV)
+    sys_.set_material(**setup["material"])
+    sys_.set_wall_material(**setup["wall_material"])
+    pts, vel, omega = setup["arrays"]
+    sys_.create_particles(pts, vel=vel)
+    sys_.state = sys_.state.replace(omega=torch.as_tensor(
+        omega, dtype=dtype, device=sys_.device))
+    return sys_
+
+
+def dem_wall_setup(rolling_mode, wheel=True, seed=5):
+    """Phase 9's five-kind walls (a conveyor floor, a z-cylinder, a
+    spherical obstacle, a cone and, with ``wheel``, a sinking spinning
+    wheel) around five_kind_scene's 120 particles, on a ``DEMSystem`` of
+    r = 5 cm over the 0.52 m cube (its params and grid; the walls replace
+    its box; 16 a cell): multi-step friction, ``rolling_mode`` with μ_r
+    0.2 (walls 0.1), dt 2e-4, velocities (σ 0.5 m/s) and spins (σ 20
+    rad/s) from
+    ``seed``."""
+    walls = five_kind_walls()
+    if not wheel:
+        walls.pop("wheels")
+    _, _, _, pts, _ = five_kind_scene()
+    rng = np.random.default_rng(seed)
+    mat = dict(DEM_BOX_MAT, mu_r=DEM_MU_R)
+    wall = dict(DEM_BOX_MAT, mu_s=0.3, mu_r=DEM_WALL_MU_R)
+    return dict(system=dict(radius=0.05, density=2500.0,
+                            box=((0, 0, 0), (0.52, 0.52, 0.52)), dt=2e-4,
+                            rolling_mode=rolling_mode, rebuild_every=4,
+                            max_per_cell=16),
+                material=mat, wall_material=wall, walls=walls,
+                arrays=(pts.astype(np.float32),
+                        rng.normal(0.0, 0.5, pts.shape).astype(np.float32),
+                        rng.normal(0.0, 20.0, pts.shape).astype(np.float32)))
+
+
+def dem_wall_run(setup, device, n_cycles=DEM_CYCLES):
+    """``make_advance_fn`` over the walls of a :func:`dem_wall_setup`:
+    ``(state, overflow)`` after ``n_cycles``."""
+    sys_ = DEMSystem(**setup["system"], device=device)
+    sys_.set_material(**setup["material"])
+    sys_.set_wall_material(**setup["wall_material"])
+    sys_._build()
+    bcs = convert.dem_boundaries_from_numpy(setup["walls"]).to(device)
+    pts, vel, omega = setup["arrays"]
+    state = make_dem_state(sys_.params, bcs, pts, vel, omega, device=device)
+    return make_advance_fn(sys_.params, bcs, sys_.grid, device=device)(
+        state, n_cycles)
+
+
+def ramp_mesh_setup(n=200, seed=3):
+    """A 0.6 m square of two triangles on a frame at (0.2, 0.2, 0.3),
+    tilted 0.4 rad about y, moving at (0.1, 0, −0.05) m/s and turning at
+    0.3 rad/s about y, inside tests/test_dem.py's 1 m box; ``n`` particles
+    of r = 5 cm with their centres 0.3 r … 1.2 r above its face (some past
+    its edges; a centre on the face would leave the normal to rounding),
+    with velocities (σ 0.5 m/s) and spins (σ 10 rad/s) from ``seed``; the
+    world triangles in float64 and the wall material's μ 0.3."""
+    rng = np.random.default_rng(seed)
+    verts = np.array([[0.0, 0.0, 0.0], [0.6, 0.0, 0.0], [0.6, 0.6, 0.0],
+                      [0.0, 0.6, 0.0]], np.float32)
+    faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    a = 0.4
+    rot = np.array([np.cos(a / 2), 0.0, np.sin(a / 2), 0.0], np.float32)
+    frame = dict(frame_pos=np.array([0.2, 0.2, 0.3], np.float32),
+                 frame_rot=rot,
+                 frame_vel=np.array([0.1, 0.0, -0.05], np.float32),
+                 frame_omega=np.array([0.0, 0.3, 0.0], np.float32))
+    R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                  [-np.sin(a), 0.0, np.cos(a)]])
+    world = [frame["frame_pos"] + verts[faces[:, k]] @ R.T for k in range(3)]
+    normal = R @ np.array([0.0, 0.0, 1.0])
+    uv = rng.uniform(-0.05, 0.65, (n, 2))
+    h = rng.uniform(0.3, 1.2, (n, 1)) * 0.05
+    pts = frame["frame_pos"] + np.c_[uv, np.zeros(n)] @ R.T + h * normal
+    return dict(system=dict(radius=0.05, density=2500.0,
+                            box=((0, 0, 0), (1, 1, 1))),
+                material=dict(DEM_BOX_MAT),
+                wall_material=dict(DEM_BOX_MAT, mu_s=0.3),
+                verts=verts, faces=faces, frame=frame, world=world,
+                arrays=(pts.astype(np.float32),
+                        rng.normal(0.0, 0.5, (n, 3)).astype(np.float32),
+                        rng.normal(0.0, 10.0, (n, 3)).astype(np.float32)))
+
+
+def ramp_mesh_forces(setup, device):
+    """``sphere_mesh_forces`` of a :func:`ramp_mesh_setup` on ``device``:
+    (forces on the particles, torques, force on the mesh, torque on the
+    mesh), and the fullest cell's triangle count."""
+    sys_ = DEMSystem(**setup["system"], device=device)
+    sys_.set_material(**setup["material"])
+    sys_.set_wall_material(**setup["wall_material"])
+    sys_._build()
+    mesh = make_triangle_mesh(setup["verts"], setup["faces"], device=device)
+    mesh = mesh.replace(**{k: torch.as_tensor(v, device=device)
+                           for k, v in setup["frame"].items()})
+    bins, most = bin_triangles_numpy(sys_.grid, setup["world"], cap=8,
+                                     margin=0.05, device=device)
+    pos, vel, omega = (torch.as_tensor(a, device=device)
+                       for a in setup["arrays"])
+    return sphere_mesh_forces(sys_.params, sys_.grid, bins, mesh, pos, vel,
+                              omega), most
+
+
+def granular_params():
+    """tests/test_granular_terrain.py's bed material and step: r = 1 cm,
+    ρ = 2500, E = 2e6, ν 0.3, e 0.4, μ 0.6, μ_r 0.1 (walls alike), dt =
+    2e-5, 16 neighbours, 8 a cell, 20 substeps an outer step, single-step
+    friction, Schwartz rolling, centred differences; r, the mass, gravity
+    and dt rounded to float32 as the test's arrays hold them (its material
+    is Python floats)."""
+    r = 0.01
+    mat = DEMMaterial(youngs=2e6, poisson=0.3, restitution=0.4, mu_s=0.6,
+                      mu_r=0.1)
+    return DEMParams(radius=f32(r), mass=f32(2500.0 * 4 / 3 * np.pi * r ** 3),
+                     material=mat, wall_material=mat,
+                     gravity=(0.0, 0.0, f32(-9.81)), dt=f32(2e-5),
+                     max_neighbors=16, max_per_cell=8, rebuild_every=20,
+                     friction_mode="single_step", rolling_mode="schwartz",
+                     integrator="centered_difference")
+
+
+def granular_rig(device=None, bed=(0.5, 0.14), depth=0.06, params=None,
+                 drop=0.0):
+    """tests/test_granular_terrain.py's coupled wheel on the port: a 3 kg
+    wheel (R = 8 cm, w = 5 cm) pre-sunk 5 mm into a carved crater of a
+    ``bed`` × ``depth`` bed (and started ``drop`` lower than that, into
+    the crater's wall), a drive torque of 0.35 N·m about y after 0.06 s
+    and a lateral damper, on ``device`` (the card by default)."""
+    dev = torch.device(device or DEV)
+    params = params or granular_params()
+    r = params.radius
+    R_w, W_w = 0.08, 0.05
+    x0 = 0.14
+    z0 = depth + R_w - 0.005
+
+    def carve(pts):
+        dxz = pts[:, [0, 2]] - np.array([x0, z0])
+        in_r = np.linalg.norm(dxz, axis=1) < (R_w + r)
+        in_y = np.abs(pts[:, 1] - bed[1] / 2) < (W_w / 2 + r)
+        return ~(in_r & in_y)
+
+    terrain, grid, bcs = make_granular_terrain_state(
+        params, bed, depth, R_w, W_w, n_wheels=1, carve_fn=carve,
+        device=dev)
+    bld = SystemBuilder(device=dev)
+    bld.set_gravity((0, 0, -9.81))
+    wheel = bld.add_body(mass=3.0, inertia=(0.01, 0.015, 0.01),
+                         pos=(x0, bed[1] / 2, z0 - drop))
+    model, bodies = bld.finalize()
+
+    def drive(t, b):
+        f = torch.zeros((model.n_bodies, 3), device=dev)
+        tau = torch.zeros((model.n_bodies, 3), device=dev)
+        tau[wheel, 1] += torch.where(t > 0.06, 0.35, 0.0)
+        f[wheel, 1] += -20.0 * b.v[wheel, 1]
+        return f, tau
+
+    adv = make_granular_advance_fn(model, params, bcs, grid,
+                                   n_substeps=params.rebuild_every,
+                                   wheel_bodies=[wheel], f_ext_fn=drive,
+                                   device=dev)
+    state = GranularFSIState(bodies=bodies, terrain=terrain,
+                             time=torch.zeros((), device=dev))
+    return dict(params=params, adv=adv, state=state, wheel=wheel, x0=x0,
+                z0=z0, depth=depth, R_w=R_w, grid=grid, bcs=bcs,
+                model=model, drive=drive)
+
+
+def granular_rig_check(rig, state, ovf, what):
+    """tests/test_granular_terrain.py's assertions after its 550 outer
+    steps: no overflow, the wheel held up by the bed and settled near its
+    start, spun up and moved forward, the particles in the box and
+    finite.  Returns (z, x, ω_y) of the wheel."""
+    require(int(ovf) == 0, f"{what}: overflow {int(ovf)}")
+    w = rig["wheel"]
+    zw, xw = float(state.bodies.x[w, 2]), float(state.bodies.x[w, 0])
+    wy = float(state.bodies.w[w, 1])
+    require(rig["depth"] + rig["R_w"] - 0.03 < zw < rig["z0"] + 0.01,
+            f"{what}: wheel z {zw}")
+    require(wy > 1.2, f"{what}: wheel spin {wy}")
+    require(xw > rig["x0"] + 0.005, f"{what}: wheel x {xw}")
+    p = state.terrain.pos
+    require(float(p[:, 2].min()) > -0.01 and bool(torch.isfinite(p).all()),
+            f"{what}: particles out of the box or non-finite")
+    return zw, xw, wy
+
+
+def dem_state_close(got, ref, what, x_tol=DEM_X_TOL, v_tol=DEM_V_TOL,
+                    w_tol=DEM_W_TOL):
+    """Positions, velocities and spins of two ``DEMState``s within their
+    tolerances; the largest ratio of an error to its tolerance."""
+    return max(check_close(got.pos, ref.pos, what=f"{what} x", **x_tol)[1],
+               check_close(got.vel, ref.vel, what=f"{what} v", **v_tol)[1],
+               check_close(got.omega, ref.omega, what=f"{what} w",
+                           **w_tol)[1])
+
+
+def dem_state_equal(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+        "pos", "vel", "omega", "tan_disp", "bc_tan_disp", "time")) \
+        and torch.equal(a.nbr.idx, b.nbr.idx)
+
+
+def dem_card_vs_cpu():
+    """Phase 16 (a): each case on the card against the port on the CPU
+    after 3 cycles (the granular rig after 20 outer steps), and repeated
+    on the card bit for bit.  The CPU runs take one thread: at a few
+    hundred particles a thread pool costs more than it gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return dem_cases()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def dem_cases():
+    """The cases of :func:`dem_card_vs_cpu`."""
+    worst = {}
+
+    def case(name, run):
+        t0 = time.perf_counter()
+        ref = run("cpu")
+        got = run(DEV)
+        again = run(DEV)
+        require(int(got[1]) == int(ref[1]) == 0, f"{name}: overflow")
+        require(dem_state_equal(got[0], again[0]),
+                f"{name}: two runs on the card differ")
+        worst[name] = dem_state_close(got[0], ref[0], name)
+        print(f"DEM system {name}: card vs CPU {worst[name]:.3f} of the "
+              f"tolerance, two card runs equal bit for bit "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+    for integrator in DEM_INTEGRATORS:
+        for friction in DEM_FRICTION:
+            setup = dem_box_setup(integrator=integrator,
+                                  friction_mode=friction)
+            case(f"{integrator}/{friction}", lambda dev, s=setup: (
+                lambda sy: sy._advance(sy.state, DEM_CYCLES))(
+                    dem_system_of(s, dev)))
+    for rolling in DEM_ROLLING:
+        setup = dem_wall_setup(rolling, wheel=False)
+        case(f"{rolling} rolling, four wall kinds",
+             lambda dev, s=setup: dem_wall_run(s, dev))
+    setup = dem_box_setup(force_model="user")
+    case("user force model", lambda dev: (
+        lambda sy: sy._advance(sy.state, DEM_CYCLES))(
+            dem_system_of(setup, dev)))
+
+    setup = ramp_mesh_setup()
+    (ref, most) = ramp_mesh_forces(setup, "cpu")
+    got, _ = ramp_mesh_forces(setup, DEV)
+    again, _ = ramp_mesh_forces(setup, DEV)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "sphere_mesh_forces: two card runs differ")
+    f_scale = float(ref[0].abs().max())
+    require(f_scale > 0 and int((ref[0].abs().sum(1) > 0).sum()) > 10,
+            "sphere_mesh_forces: too few contacts")
+    r = max(check_close(g, c, 1e-4, 1e-5 * f_scale * s,
+                        f"sphere_mesh_forces {k}")[1]
+            for g, c, k, s in zip(got, ref, ("f", "tau", "F", "T"),
+                                  (1.0, 0.05, 1.0, 1.0)))
+    print(f"sphere_mesh_forces, ramp of 2 triangles, 200 particles ("
+          f"{most} triangles in the fullest cell): card vs CPU {r:.3f} of "
+          f"the tolerance "
+          f"(rtol 1e-4, atol 1e-5 of the largest force), two card runs "
+          f"equal bit for bit")
+
+    t0 = time.perf_counter()
+    (ref, ovf_c), (got, ovf_g), (again, _) = (
+        (lambda rig: rig["adv"](rig["state"], GRANULAR_PARITY_OUTER))(
+            granular_rig(dev, drop=GRANULAR_DROP))
+        for dev in ("cpu", DEV, DEV))
+    require(int(ovf_c) == int(ovf_g) == 0, "granular rig: overflow")
+    require(dem_state_equal(got.terrain, again.terrain)
+            and all(torch.equal(getattr(got.bodies, k),
+                                getattr(again.bodies, k)) for k in "xqvw"),
+            "granular rig: two card runs differ")
+    r = max(dem_state_close(got.terrain, ref.terrain, "granular bed"),
+            check_close(got.bodies.x, ref.bodies.x, what="granular wheel x",
+                        **DEM_X_TOL)[1],
+            check_close(got.bodies.v, ref.bodies.v, what="granular wheel v",
+                        **DEM_V_TOL)[1],
+            check_close(got.bodies.w, ref.bodies.w, what="granular wheel w",
+                        **DEM_W_TOL)[1])
+    print(f"granular rig ({ref.terrain.n} particles, the wheel started "
+          f"{GRANULAR_DROP} m into the crater's wall), "
+          f"{GRANULAR_PARITY_OUTER} outer steps of 20 substeps: card vs "
+          f"CPU {r:.3f} of the tolerance, two card runs equal bit for bit "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return worst
+
+
+def dem_gather_scene(n_target=1_000_000):
+    """bench.py's pinned scene as its gather branch builds it
+    (bench.py:84-110, :133-135, :155-157): bench_params with 12
+    neighbours, 16 a cell, skin 0.3, 100 substeps a cycle, cells of two
+    lattice spacings over the whole box from the origin, every float
+    rounded to float32 as the JAX package holds it."""
+    params, bcs, grid, pts, _ = bench_engine_scene("xla", n_target)
+    params = dem_as_float32(replace(params, max_neighbors=12,
+                                    max_per_cell=16, skin=0.3))
+    return params, bcs, grid, pts
+
+
+def dem_as_float32(params):
+    """``params`` with every float rounded to float32."""
+    def mat(m):
+        return replace(m, **{f.name: f32(getattr(m, f.name))
+                             for f in dataclasses.fields(m)})
+
+    return replace(params, radius=f32(params.radius),
+                   mass=f32(params.mass), dt=f32(params.dt),
+                   material=mat(params.material),
+                   wall_material=mat(params.wall_material),
+                   gravity=tuple(f32(g) for g in params.gravity))
+
+
+def dem_profile_cycle(params, bcs, grid, state):
+    """One cycle under the profiler as ``make_advance_fn`` runs it, the
+    rebuild and the substeps' graph replay in two windows (the graph
+    captured before them): ``{part: (kernels, device ms)}`` and the
+    state."""
+    out = {}
+    box = {"state": state}
+    block = SubstepBlock(params, params.rebuild_every)
+    block(rebuild_neighbors(params, grid, state), bcs)
+
+    def rebuild():
+        box["state"] = rebuild_neighbors(params, grid, box["state"])
+
+    def substeps():
+        box["state"] = block(box["state"], bcs)[0]
+
+    for part, fn in (("rebuild", rebuild), ("substeps", substeps)):
+        _, events = device_events(fn)
+        out[part] = (len(events),
+                     sum(e.time_range.elapsed_us() for e in events) / 1e3)
+    return out, box["state"]
+
+
+def dem_check_box(state, lo, hi, what):
+    """Finite, and every particle inside the box by at most 0.25 r."""
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (state.pos, state.vel, state.omega)),
+            f"{what}: non-finite state")
+    lo = torch.as_tensor(lo, dtype=state.pos.dtype, device=state.pos.device)
+    hi = torch.as_tensor(hi, dtype=state.pos.dtype, device=state.pos.device)
+    out = torch.maximum(lo - state.pos, state.pos - hi).max()
+    require(float(out) < 0.0, f"{what}: a particle left the box "
+            f"({float(out)} m past a wall)")
+
+
+def dem_gather_full_width(card, n_target=1_000_000):
+    """Phase 16 (b): bench.py's gather engine at 1,000,000 spheres through
+    ``make_dem_state`` and ``make_advance_fn``: 1 warm-up and 2 timed
+    cycles of 100 substeps, phase 2's checks, particle-steps/s beside
+    phase 2's rate, peak memory, and one profiled cycle."""
+    params, bcs, grid, pts = dem_gather_scene(n_target)
+    n = len(pts)
+    torch.cuda.reset_peak_memory_stats()
+    adv = make_advance_fn(params, bcs, grid, device=DEV)
+    state = make_dem_state(params, bcs, pts, device=DEV)
+    st, ovf = adv(state, 1)
+    require(int(ovf) == 0, f"gather DEM warm-up overflow {int(ovf)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = adv(st, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t_sim = 3 * params.rebuild_every * params.dt
+    gaps, mean_v = check_full_width(params, bcs, pts, st.pos, st.vel,
+                                    st.omega, ovf, t_sim, "gather DEM")
+    steps = 2 * params.rebuild_every
+    rate = n * steps / wall
+    most = int(st.nbr.valid.sum(1).max())
+    ph2 = RATES.get("dem")
+    print(f"gather DEM ({n} spheres, grid {grid.dims}, 16 a cell, 12 "
+          f"neighbours, most in a row {most}): {steps} substeps in "
+          f"{wall:.4f} s = {rate:.6e} particle-steps/s (host clock), peak "
+          f"device memory {peak:.3f} GiB, on {card}; phase 2's K1: "
+          + (f"{ph2:.6e} particle-steps/s" if ph2 else "not run in this call")
+          + f"; overflow 0, finite, wall gap min {gaps[0]:.4f} r at the "
+          f"start and {gaps[1]:.4f} r at the end, mean v {mean_v.tolist()} "
+          f"(free fall {-G * t_sim:.6e})")
+    parts, _ = dem_profile_cycle(params, bcs.to(DEV), grid, st)
+    total = sum(ms for _, ms in parts.values())
+    print("gather DEM, one profiled cycle: " + "; ".join(
+        f"{k} {n_k} kernels {ms:.4f} ms" for k, (n_k, ms) in parts.items())
+        + f"; {total:.4f} ms of device time in all against "
+        f"{wall / 2 * 1e3:.4f} ms a cycle by the host clock")
+    RATES["gather_dem"] = rate
+
+
+def dem_system_full_width(card, n_target=1_000_000):
+    """Phase 16 (c): the same spheres and box through ``DEMSystem`` with
+    its own defaults (multi-step friction, centred differences, dt from
+    ``suggest_step_size``, 8 substeps a cycle, skin 0.2), 12 neighbours
+    and 16 a cell: two timed ``advance`` calls of one cycle each, so that
+    the friction history migrates at 1,000,000 particles."""
+    params, bcs, _, pts = dem_gather_scene(n_target)
+    lo = bcs.planes.point[0].tolist()
+    hi = bcs.planes.point[3].tolist()
+    torch.cuda.reset_peak_memory_stats()
+    sys_ = DEMSystem(radius=0.005, density=2500.0, box=(lo, hi),
+                     max_neighbors=12, max_per_cell=16, device=DEV)
+    mat = dict(youngs=1e7, poisson=0.3, restitution=0.5, mu_s=0.5)
+    sys_.set_material(**mat)
+    sys_.set_wall_material(**mat)
+    sys_.create_particles(pts)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_.advance(sys_.dt * 8)        # raises on an overflow
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = sys_.state
+    dem_check_box(st, lo, hi, "DEMSystem 1M")
+    kept = int((st.tan_disp.abs().sum(-1) > 0).sum())
+    n = st.n
+    print(f"DEMSystem ({n} spheres, grid {sys_.grid.dims}, dt "
+          f"{sys_.dt:.9e} s): two advance calls of one cycle (8 substeps) in "
+          f"{walls[0]:.4f} s and {walls[1]:.4f} s = "
+          f"{n * 8 / walls[1]:.6e} particle-steps/s for the second (host "
+          f"clock), peak device memory {peak:.3f} GiB, on {card}; overflow "
+          f"0, finite, inside the box, {kept} pair slots with friction "
+          f"history after the second rebuild, KE "
+          f"{sys_.kinetic_energy():.6e} J")
+
+
+# tools/dem_dam_break_reference.py: the JAX demo's outcome (its DEMSystem
+# on the CPU, float32): the particle count, dt, and the front x and
+# kinetic energy at each of its 12 frames.  The collapse is chaotic: the
+# port on the CPU parts from it by up to 0.0388 m and 7.45 % of KE in
+# float32, 0.0311 m and 5.86 % in float64; the card is held to twice the
+# larger spread
+DAM_N = 2380
+DAM_DT = 0.00017307966481894255
+JAX_DAM_FRONT = (
+    0.2896081507205963, 0.3055984675884247, 0.33103010058403015,
+    0.3703274726867676, 0.42496493458747864, 0.4906689524650574,
+    0.5698563456535339, 0.6337763071060181, 0.6938408017158508,
+    0.7541345953941345, 0.8145250678062439, 0.8749155402183533)
+JAX_DAM_KE = (
+    0.7401580385587351, 0.703752882328482, 1.1512568648439605,
+    2.1071879193131196, 2.710841669912518, 2.2476139033282365,
+    2.102816303825404, 1.7741079960483939, 1.5552129875993355,
+    1.3054796559782105, 1.1409639730806602, 0.9367370157250112)
+DAM_FRONT_TOL = 0.08
+DAM_KE_RTOL = 0.15
+
+
+def dem_dam_break_demo(card):
+    """Phase 16 (d): demos/demo_dem_dam_break.py on the port's
+    ``DEMSystem``, its PLY frames written through
+    ``export_particle_sequence``, held to the JAX demo's particle count,
+    dt, and front x and kinetic energy at each of its 12 frames."""
+    radius = 0.01
+    sys_ = DEMSystem(radius=radius, density=2500,
+                     box=((0, 0, 0), (1.2, 0.2, 0.4)), rebuild_every=8,
+                     max_neighbors=16, device=DEV)
+    sys_.set_material(youngs=1e7, restitution=0.4, mu_s=0.5)
+    sys_.set_wall_material(youngs=1e7, restitution=0.4, mu_s=0.5)
+    pts = hcp_sample_box((0.005, 0.005, 0.005), (0.3, 0.195, 0.3),
+                         radius * 1.01)
+    sys_.create_particles(pts)
+    require(len(pts) == DAM_N and sys_.dt == DAM_DT,
+            f"dam break: {len(pts)} particles, dt {sys_.dt!r}; the JAX "
+            f"demo has {DAM_N}, {DAM_DT!r}")
+    frames, fronts, kes = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(12):
+        sys_.advance(0.05)
+        frames.append((float(sys_.state.time), sys_.positions.copy()))
+        fronts.append(float(frames[-1][1][:, 0].max()))
+        kes.append(sys_.kinetic_energy())
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as out:
+        export_particle_sequence(out, frames)
+        files = sorted(os.listdir(out))
+        size = sum(os.path.getsize(os.path.join(out, f)) for f in files)
+    require(len(files) == 13, f"dam break: {len(files)} files written")
+    d_front = max(abs(a - b) for a, b in zip(fronts, JAX_DAM_FRONT))
+    r_ke = max(abs(a - b) / b for a, b in zip(kes, JAX_DAM_KE))
+    require(d_front <= DAM_FRONT_TOL and r_ke <= DAM_KE_RTOL,
+            f"dam break: front x off by {d_front} m (tolerance "
+            f"{DAM_FRONT_TOL}), KE by {r_ke} relative (tolerance "
+            f"{DAM_KE_RTOL}): fronts {fronts}, KE {kes}")
+    n_cycles = int(round(0.05 / (sys_.dt * 8))) * 12
+    print(f"DEM dam break demo ({len(pts)} particles, dt {sys_.dt:.6e} s, "
+          f"{n_cycles} cycles of 8 substeps): 12 frames in {wall:.3f} s on "
+          f"{card}, {len(files)} files ({size} bytes) written; front x "
+          f"within {d_front:.4f} m of the JAX demo (tolerance "
+          f"{DAM_FRONT_TOL}), KE within {r_ke:.4f} relative (tolerance "
+          f"{DAM_KE_RTOL}); last frame t = {frames[-1][0]:.4f} s, front "
+          f"{fronts[-1]:.4f} m, KE {kes[-1]:.6e} J")
+
+
+GRANULAR_PARITY_OUTER = 20
+# the wheel started this much lower than the test's rig, into the crater's
+# wall, so that the parity runs are coupled from the first substep
+GRANULAR_DROP = 0.005
+GRANULAR_RIG_OUTER = 550
+GRANULAR_BED = (2.0, 0.5)
+GRANULAR_BED_DEPTH = 0.1
+GRANULAR_BED_OUTER = 200
+
+
+def granular_terrain_runs(card):
+    """Phase 16 (e): tests/test_granular_terrain.py's rig for its 550
+    outer steps with its assertions, then the same wheel on a 2.0 × 0.5 ×
+    0.1 m bed of r = 5 mm spheres (HCP), timed over 200 outer steps of 20
+    substeps after 10 of warm-up."""
+    rig = granular_rig(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = rig["adv"](rig["state"], GRANULAR_RIG_OUTER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    zw, xw, wy = granular_rig_check(rig, st, ovf, "granular rig")
+    sim = GRANULAR_RIG_OUTER * rig["params"].dt * 20
+    print(f"granular rig ({st.terrain.n} particles): {GRANULAR_RIG_OUTER} "
+          f"outer steps in {wall:.3f} s ({wall / GRANULAR_RIG_OUTER * 1e3:.3f}"
+          f" ms an outer step, RTF {wall / sim:.3f}) on {card}; "
+          f"tests/test_granular_terrain.py's assertions met: wheel z "
+          f"{zw:.5f} m, x {xw:.5f} m, ω_y {wy:.4f} rad/s, overflow 0")
+
+    params = replace(granular_params(), radius=f32(0.005),
+                     mass=f32(2500.0 * 4 / 3 * np.pi * 0.005 ** 3))
+    rig = granular_rig(DEV, bed=GRANULAR_BED, depth=GRANULAR_BED_DEPTH,
+                       params=params)
+    st, ovf = rig["adv"](rig["state"], 10)
+    require(int(ovf) == 0, "granular bed warm-up: overflow")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ovf = rig["adv"](st, GRANULAR_BED_OUTER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(int(ovf) == 0, "granular bed: overflow")
+    require(all(bool(torch.isfinite(a).all()) for a in
+                (st.terrain.pos, st.terrain.vel, st.bodies.x, st.bodies.w)),
+            "granular bed: non-finite state")
+    ms = wall / GRANULAR_BED_OUTER * 1e3
+    sim = GRANULAR_BED_OUTER * params.dt * 20
+    w = rig["wheel"]
+    print(f"granular bed {GRANULAR_BED[0]} x {GRANULAR_BED[1]} x "
+          f"{GRANULAR_BED_DEPTH} m ({st.terrain.n} particles of r = 5 mm, "
+          f"grid {rig['grid'].dims}): {GRANULAR_BED_OUTER} outer steps of 20 "
+          f"substeps in {wall:.3f} s = {ms:.3f} ms an outer step, RTF "
+          f"{wall / sim:.3f}, on {card}; overflow 0, finite; wheel z "
+          f"{float(st.bodies.x[w, 2]):.5f} m, ω_y "
+          f"{float(st.bodies.w[w, 1]):.4f} rad/s")
+    RATES["granular_bed_ms"] = ms
+
+
+def dem_system_main_path(card):
+    """Phase 16: the DEM system on the neighbour list: (a) card against
+    CPU, (b) bench.py's gather engine at 1 M spheres, (c) ``DEMSystem``
+    with its defaults at 1 M, (d) the DEM dam-break demo, (e) granular
+    terrain."""
+    for part, fn in (("a", lambda c: dem_card_vs_cpu()),
+                     ("b", dem_gather_full_width),
+                     ("c", dem_system_full_width),
+                     ("d", dem_dam_break_demo),
+                     ("e", granular_terrain_runs)):
+        t0 = time.perf_counter()
+        fn(card)
+        print(f"phase 16 ({part}) took {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5315,6 +5978,11 @@ def main():
     t0 = time.perf_counter()
     gather_main_path(card)
     print(f"phase 15 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 16: the DEM system on the neighbour list (no kernel on its path)
+    t0 = time.perf_counter()
+    dem_system_main_path(card)
+    print(f"phase 16 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

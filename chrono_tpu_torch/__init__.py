@@ -45,8 +45,16 @@ tensor code with no TPU kernel; the neighbour-list (gather) backend
 in WCSPH or ISPH, ``fsi.system.fsi_step`` and ``make_fsi_advance_fn``;
 CRM's gather engine, ``fsi.sph.crm.crm_step`` and the default of
 ``fsi.crm_terrain.make_crm_fsi_advance_fn``), plain tensor code with no
-TPU kernel.  Its builders put the model on the card unless the caller
-passes ``device="cpu"``; convex collision shapes, tracked vehicles and
-flexible BCE markers are refused, and so are periodic grids on the paths
-that only ever ran closed boxes.
+TPU kernel; the DEM system on the neighbour list (``dem.system``:
+``DEMSystem``, ``make_dem_state``, ``make_advance_fn``, the four
+integrators, every friction mode with its history, Schwartz and
+elastic–plastic rolling, the user force model; ``dem.forces``'s list and
+wall passes; ``dem.mesh``'s sphere–triangle coupling;
+``vehicle.granular_terrain``; ``utils.samplers``; and ``io``'s writers,
+exporters and checkpoints), plain tensor code with no TPU kernel.  Its
+builders put the model on the card unless the caller passes
+``device="cpu"``; convex collision shapes, tracked vehicles and flexible
+BCE markers are refused, and so are periodic grids on the paths that only
+ever ran closed boxes.  Of ``io`` the YAML, URDF, ADAMS, OpenSim, FMI and
+archive modules are not ported.
 """

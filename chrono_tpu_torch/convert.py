@@ -13,7 +13,10 @@ array or Python scalar (nested mappings for the two materials, the wall
 kinds, and a model's joints, motors and force elements); these functions
 turn such mappings into the port's objects.  The vehicle's carriers (the tires'
 parameters, ``PowertrainParams``, ``WheeledVehicle``, ``SCMParams`` /
-``SCMState``, ``Rover`` and the drivers) come across the same way.  The NSC
+``SCMState``, ``Rover`` and the drivers) come across the same way, and
+so do the neighbour-list DEM system's ``DEMState`` (its list and
+histories), ``TriangleMesh`` / ``MeshBins`` and the granular terrain's
+``GranularFSIState``.  The NSC
 multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
@@ -33,7 +36,9 @@ from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
 from chrono_tpu_torch.dem.neighbors import NeighborList
+from chrono_tpu_torch.dem.mesh import MeshBins, TriangleMesh
 from chrono_tpu_torch.dem.params import DEMMaterial, DEMParams
+from chrono_tpu_torch.dem.system import DEMState
 from chrono_tpu_torch.fsi.active import ActiveDomainSpec
 from chrono_tpu_torch.fsi.crm_terrain import CRMFSIState
 from chrono_tpu_torch.fsi.system import FSIState
@@ -51,6 +56,7 @@ from chrono_tpu_torch.physics.system import Model
 from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
 from chrono_tpu_torch.utils.tree import is_static
 from chrono_tpu_torch.vehicle import driver as drv
+from chrono_tpu_torch.vehicle.granular_terrain import GranularFSIState
 from chrono_tpu_torch.vehicle import tire as tr
 from chrono_tpu_torch.vehicle.powertrain import PowertrainParams
 from chrono_tpu_torch.vehicle.terrain import SCMParams, SCMState
@@ -62,28 +68,27 @@ def _scalar(x) -> float:
 
 
 def material_from_numpy(leaves: Mapping[str, Any]) -> DEMMaterial:
-    return DEMMaterial(youngs=_scalar(leaves["youngs"]),
-                       poisson=_scalar(leaves["poisson"]),
-                       restitution=_scalar(leaves["restitution"]),
-                       mu_s=_scalar(leaves["mu_s"]))
+    """``DEMMaterial`` from the JAX ``DEMMaterial`` fields (any left out
+    keep their defaults)."""
+    return DEMMaterial(**{f.name: _scalar(leaves[f.name])
+                          for f in fields(DEMMaterial) if f.name in leaves})
 
 
 def params_from_numpy(leaves: Mapping[str, Any]) -> DEMParams:
-    """``DEMParams`` from the JAX ``DEMParams`` fields.  The fields that
-    the cell-slot path does not read (neighbour-list capacities, rolling
-    resistance, integrator choice) are not carried over."""
-    if leaves.get("force_model", "mat_based") != "mat_based":
-        raise NotImplementedError("only the mat_based force model is ported")
-    if leaves.get("rolling_mode", "none") != "none":
-        raise NotImplementedError("rolling resistance is not ported")
+    """``DEMParams`` from the JAX ``DEMParams`` fields: every one, the
+    static ones (capacities, skin, integrator, friction, rolling and
+    force model) as they are."""
+    static = {f.name: leaves[f.name] for f in fields(DEMParams)
+              if f.name in leaves and f.name in (
+                  "max_neighbors", "max_per_cell", "rebuild_every", "skin",
+                  "integrator", "friction_mode", "rolling_mode",
+                  "force_model")}
     return DEMParams(
         radius=_scalar(leaves["radius"]), mass=_scalar(leaves["mass"]),
         material=material_from_numpy(leaves["material"]),
         wall_material=material_from_numpy(leaves["wall_material"]),
         gravity=tuple(float(g) for g in np.asarray(leaves["gravity"])),
-        dt=_scalar(leaves["dt"]),
-        rebuild_every=int(leaves["rebuild_every"]),
-        friction_mode=str(leaves["friction_mode"]))
+        dt=_scalar(leaves["dt"]), **static)
 
 
 def _walls(cls, leaves: Mapping[str, Any]):
@@ -263,6 +268,57 @@ def motion_function_from_numpy(leaves: Mapping[str, Any], *, device
             kw[f.name] = torch.as_tensor(np.array(v, np.float32),
                                          device=device)
     return cls(**kw)
+
+
+def _present(v) -> bool:
+    """A leaf that is there: not None, nor numpy's wrap of None."""
+    return v is not None and not (isinstance(v, np.ndarray)
+                                  and v.dtype == object)
+
+
+def dem_state_from_numpy(leaves: Mapping[str, Any], *, device) -> DEMState:
+    """``dem.system.DEMState`` on ``device`` from the JAX ``DEMState``
+    fields: the neighbour list as a mapping of its fields, the histories,
+    and Chung's and the rolling fields where they are present."""
+    def t(name):
+        return torch.as_tensor(np.array(leaves[name], np.float32),
+                               device=device)
+
+    optional = {f: t(f) for f in ("acc_old", "alpha_old", "roll_disp",
+                                  "bc_roll_disp")
+                if _present(leaves.get(f))}
+    return DEMState(pos=t("pos"), vel=t("vel"), omega=t("omega"),
+                    nbr=neighbor_list_from_numpy(leaves["nbr"],
+                                                 device=device),
+                    tan_disp=t("tan_disp"), bc_tan_disp=t("bc_tan_disp"),
+                    time=t("time"), **optional)
+
+
+def triangle_mesh_from_numpy(leaves: Mapping[str, Any], *, device
+                             ) -> TriangleMesh:
+    """``dem.mesh.TriangleMesh`` on ``device`` from the JAX fields."""
+    return TriangleMesh(**{f.name: torch.as_tensor(
+        np.array(leaves[f.name], np.float32), device=device)
+        for f in fields(TriangleMesh)})
+
+
+def mesh_bins_from_numpy(leaves: Mapping[str, Any], *, device) -> MeshBins:
+    """``dem.mesh.MeshBins`` on ``device`` from the JAX fields."""
+    return MeshBins(tri_ids=torch.as_tensor(
+        np.array(leaves["tri_ids"], np.int32), device=device),
+        cap=int(leaves["cap"]))
+
+
+def granular_state_from_numpy(leaves: Mapping[str, Any], *, device
+                              ) -> GranularFSIState:
+    """``vehicle.granular_terrain.GranularFSIState`` on ``device`` from the
+    JAX fields: ``bodies`` as for :func:`body_state_from_numpy`,
+    ``terrain`` as for :func:`dem_state_from_numpy`, ``time``."""
+    return GranularFSIState(
+        bodies=body_state_from_numpy(leaves["bodies"], device=device),
+        terrain=dem_state_from_numpy(leaves["terrain"], device=device),
+        time=torch.as_tensor(np.array(leaves["time"], np.float32),
+                             device=device))
 
 
 def _carrier(cls, leaves: Mapping[str, Any], device):

@@ -189,10 +189,9 @@ def substep_coefs(params: DEMParams, bcs: DEMBoundaries, grid: GridSpec,
 def wall_rows(params: DEMParams, bcs: DEMBoundaries,
               state: torch.Tensor):
     """The general wall pass on (3, R, 4) rows: force and torque, each
-    (R, 3)."""
-    f, t, _ = wall_forces(params, bcs, state[0, :, :3], state[1, :, :3],
-                          state[2, :, :3])
-    return f, t
+    (R, 3), with zero wall history (the JAX forces path passes zeros)."""
+    return wall_forces(params, bcs, state[0, :, :3], state[1, :, :3],
+                       state[2, :, :3])[:2]
 
 
 def integrate_rows(params: DEMParams, state: torch.Tensor,
@@ -246,10 +245,13 @@ def make_cell_dense_advance(params: DEMParams, bcs: DEMBoundaries,
     the forces path takes every kind of ``DEMBoundaries``.  The defaults
     (``"flat"`` with migration) are the port's main path; the JAX defaults
     are ``"xla"`` without migration.  ``multi_step`` friction runs as
-    ``single_step`` (no history), as in JAX.  ``ovf`` is the largest
-    capacity overflow seen, and with migration also the number of particles
-    lost to a jump of more than one cell (0 when all is well).  Inputs are
-    (N, 3) arrays; outputs are (N, 3) float32 tensors on ``device``.
+    ``single_step`` (no history), as in JAX; rolling resistance and the
+    user force model change the forces path's wall pass alone (the pair
+    kernels and K1 take the Hertz coefficients), as in JAX.  ``ovf`` is
+    the largest capacity overflow seen, and with migration also the number
+    of particles lost to a jump of more than one cell (0 when all is
+    well).  Inputs are (N, 3) arrays; outputs are (N, 3) float32 tensors
+    on ``device``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown cell-dense backend {backend!r}")

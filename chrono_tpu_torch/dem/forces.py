@@ -1,14 +1,27 @@
-"""Hertz–Mindlin contact forces without tangential history.
+"""Hertz–Mindlin contact forces: the kernels' pair function and the
+neighbour-list force passes with history.
 
 Counterpart of ``chrono_tpu/dem/forces.py`` (``_pair_force``,
-``_wall_reactions``, ``wall_forces``) and of the 27-neighbour pair sum of
-``chrono_tpu/dem/cell_dense.py`` ``cell_dense_forces``.  Frictionless or
-single-step friction only (the cell-slot paths keep no per-contact history).
-Vectors are tuples of three component tensors, the form of the TPU kernel's
-pair function, so that no op reduces over a length-3 axis.
+``particle_forces``, ``_wall_reactions``, ``wall_forces``) and of the
+27-neighbour pair sum of ``chrono_tpu/dem/cell_dense.py``
+``cell_dense_forces``.  Two forms live here:
 
-  normal      F_n = max(kn·√δ·δ − gn·δ^¼·v_n, 0)
-  tangential  F_t = (kt·√δ·dt + gt·δ^¼)·v_t, capped at μ·F_n
+* the cell-slot kernels' pair function (:func:`_pair_force`,
+  :func:`cell_pair_forces`, :func:`row_pair_forces`,
+  :func:`plane_wall_forces`): frictionless or single-step friction, no
+  per-contact history, vectors as tuples of three component tensors, the
+  form of the CUDA kernels' pair loop, so that no op reduces over a
+  length-3 axis;
+* the neighbour-list system's force passes (:func:`particle_forces` over
+  the (N, K) list, :func:`wall_forces` over the (N, B) walls), the JAX
+  functions op for op on (…, 3) tensors: every friction mode with the
+  tangential history kept in the tangent plane and cut back at the
+  Coulomb cap, Schwartz and elastic–plastic rolling resistance, and the
+  user-stiffness model.  Each particle's sum runs over its own row of
+  slots (a masked row reduction in a fixed order: no scatter, no atomics).
+
+  normal      F_n = max(kn·√δ·δ − gn·q·v_n, 0), q = δ^¼ (δ^½ for "user")
+  tangential  F_t = kt·√δ·ξ + gt·q·v_t, capped at μ·F_n
 """
 
 from __future__ import annotations
@@ -18,7 +31,7 @@ import torch
 from chrono_tpu_torch.dem.bc import (
     CONTACTS, DEMBoundaries, PlaneBCs, plane_contacts,
 )
-from chrono_tpu_torch.dem.params import DEMParams, hertz_coefficients
+from chrono_tpu_torch.dem.params import DEMParams, contact_coefficients
 from chrono_tpu_torch.dem.rows import neighbour_runs
 
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -167,46 +180,160 @@ def plane_wall_forces(planes: PlaneBCs, pos, vel, omega, radius, kn, gn,
             torch.stack([(arm * t).sum(-1) for t in tq]))
 
 
-def wall_forces(params: DEMParams, bcs: DEMBoundaries, pos, vel, omega):
-    """Dense particle × wall pass over every kind of ``bcs``.
+def _history_pair_force(params: DEMParams, n, overlap, v_rel, xi, active,
+                        kn, gn, kt, gt):
+    """The JAX ``_pair_force`` on (…, 3) tensors, shared by pairs and
+    walls: n from this particle toward the other surface, v_rel the other
+    surface's velocity relative to this particle at the contact, xi the
+    tangential history.  Returns (force, new history, F_n); friction is
+    capped at ``params.material.mu_s`` for walls too, as in JAX."""
+    delta = torch.clamp(overlap, min=0.0)
+    sq = torch.sqrt(delta)
+    q4 = sq if params.force_model == "user" else torch.sqrt(sq)
+    vn_s = torch.sum(v_rel * n, dim=-1)
+    vt = v_rel - vn_s[..., None] * n
+    fn = torch.clamp(kn * sq * delta - gn * q4 * vn_s, min=0.0)
+    f_normal = -fn[..., None] * n
+    act = active[..., None]
+    if params.friction_mode == "frictionless":
+        return (torch.where(act, f_normal, 0.0), torch.zeros_like(xi), fn)
+    if params.friction_mode == "single_step":
+        xi = vt * params.dt
+    else:
+        xi = xi + vt * params.dt
+        xi = xi - torch.sum(xi * n, dim=-1, keepdim=True) * n
+    ft = kt * sq[..., None] * xi + gt * q4[..., None] * vt
+    ft_mag = torch.sqrt(torch.sum(ft * ft, dim=-1) + 1e-18)
+    cap = params.material.mu_s * fn
+    scale = torch.where(ft_mag > cap, cap / ft_mag, 1.0)[..., None]
+    ft = ft * scale
+    xi = torch.where(act, xi * scale, 0.0)
+    return (torch.where(act, f_normal + ft, 0.0), xi,
+            torch.where(active, fn, 0.0))
 
-    pos, vel, omega: (N, 3).  Returns force and torque (N, 3) on the
-    particles and the per-wall reactions ``(react_f, react_tau)``, each
-    (B, 3): minus the summed contact forces, and minus their moments about
-    the origin taken at the contact points (shift to a body centre c by
-    τ_c = τ_0 − c × F).  The Hertz coefficients are the wall material's
-    (m* = m, r* = r) while friction is capped at ``params.material.mu_s``,
-    as in the JAX ``wall_forces`` whose pair function serves pairs and
-    walls alike (the fused substep caps at the wall material's μ instead).
+
+def _schwartz_torque(mu_r, arm, fn, w_rel, active):
+    """Rolling torque μ_r·arm·F_n along the relative spin, off below a
+    rolling speed arm·|ω| of 1e-4 m/s (the dead zone that lets a pile come
+    to rest); summed over the contacts of each particle."""
+    w_mag = torch.sqrt(torch.sum(w_rel * w_rel, dim=-1) + 1e-12)
+    keep = active & (arm * w_mag > 1e-4)
+    t_roll = (mu_r * arm * fn / w_mag)[..., None] * w_rel
+    return torch.sum(torch.where(keep[..., None], t_roll, 0.0), dim=1)
+
+
+def _rolling_spring(mu_r, k_roll, arm, fn, xi_r, active):
+    """Elastic–plastic rolling: the wound rolling displacement xi_r cut
+    back at the torque cap μ_r·F_n·arm.  Returns (summed torque, new
+    displacement)."""
+    t_mag = k_roll * torch.sqrt(torch.sum(xi_r * xi_r, dim=-1) + 1e-18)
+    cap = mu_r * fn * arm
+    scale = torch.clamp(cap / torch.clamp(t_mag, min=1e-18), max=1.0)
+    xi_r = torch.where(active[..., None], xi_r * scale[..., None], 0.0)
+    return torch.sum(torch.where(active[..., None], k_roll * xi_r, 0.0),
+                     dim=1), xi_r
+
+
+def particle_forces(params: DEMParams, pos, vel, omega, nbr_idx, nbr_valid,
+                    tan_disp, roll_disp=None):
+    """Pair forces over the (N, K) neighbour rows → per-particle force and
+    torque (N, 3) and the new (N, K, 3) tangential history; with
+    ``rolling_mode="elastic_plastic"`` also the new rolling displacement
+    (``roll_disp`` is required then)."""
+    r = params.radius
+    kn, gn, kt, gt = contact_coefficients(params, params.material,
+                                          0.5 * params.mass, 0.5 * r)
+    j = torch.clamp(nbr_idx, min=0).long()
+    d = pos[j] - pos[:, None, :]
+    dist = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-18)
+    n = d / dist[..., None]
+    overlap = 2.0 * r - dist
+    active = nbr_valid & (overlap > 0)
+    arm = r - 0.5 * overlap
+    lever = arm[..., None] * n
+    w_j = omega[j]
+    v_rel = (vel[j] + torch.linalg.cross(w_j, -lever, dim=-1)
+             - (vel[:, None, :]
+                + torch.linalg.cross(omega[:, None, :].expand_as(lever),
+                                     lever, dim=-1)))
+    f_pair, xi_new, fn = _history_pair_force(
+        params, n, overlap, v_rel, tan_disp, active, kn, gn, kt, gt)
+    force = torch.sum(f_pair, dim=1)
+    tau = torch.sum(torch.linalg.cross(lever, f_pair, dim=-1), dim=1)
+    if params.rolling_mode == "schwartz":
+        tau = tau + _schwartz_torque(params.material.mu_r, arm, fn,
+                                     w_j - omega[:, None, :], active)
+    elif params.rolling_mode == "elastic_plastic":
+        if roll_disp is None:
+            raise ValueError("elastic_plastic rolling needs roll_disp state")
+        xi_r = roll_disp + (w_j - omega[:, None, :]) * params.dt
+        t_roll, xi_r = _rolling_spring(params.material.mu_r, kt * r * r,
+                                       arm, fn, xi_r, active)
+        return force, tau + t_roll, xi_new, xi_r
+    return force, tau, xi_new
+
+
+def _wall_reactions(pos, arm, n, f_pair):
+    """Per-wall reaction (B, 3) force and torque about the origin: minus
+    the summed contact forces, and minus their moments taken at the
+    contact points (shift to a body centre c by τ_c = τ_0 − c × F)."""
+    react_f = -torch.sum(f_pair, dim=0)
+    p_c = pos[:, None, :] + arm[..., None] * n
+    react_tau = -torch.sum(torch.linalg.cross(p_c, f_pair, dim=-1), dim=0)
+    return react_f, react_tau
+
+
+def wall_forces(params: DEMParams, bcs: DEMBoundaries, pos, vel, omega,
+                bc_tan_disp=None, bc_roll_disp=None):
+    """Dense particle × wall pass over every kind of ``bcs``, the JAX
+    ``wall_forces``.
+
+    pos, vel, omega: (N, 3); ``bc_tan_disp`` (N, B, 3) the wall friction
+    history (None: zero, as the cell-slot paths pass it).  Returns
+    ``(force, torque, new history, (react_f, react_tau))``, and with
+    elastic–plastic rolling and a ``bc_roll_disp`` the new wall rolling
+    displacement as a fifth item.  The coefficients are the wall
+    material's (m* = m, r* = r) while friction is capped at
+    ``params.material.mu_s``; rolling at walls uses the wall material's
+    μ_r and the elastic part of F_n.
     """
-    if params.friction_mode not in ("frictionless", "single_step"):
-        raise ValueError("wall_forces keeps no tangential history: "
-                         f"friction_mode {params.friction_mode!r}")
     r = params.radius
     kinds = bcs.kinds()
     if not kinds:
         z = torch.zeros_like(pos)
         zb = pos.new_zeros((0, 3))
-        return z, z, (zb, zb)
+        return z, z, bc_tan_disp, (zb, zb)
     parts = [CONTACTS[k](getattr(bcs, k), pos, r) for k in kinds]
     gap = torch.cat([p.gap for p in parts], dim=1)             # (N, B)
-    n_into = torch.cat([p.normal for p in parts], dim=1)       # (N, B, 3)
+    n = -torch.cat([p.normal for p in parts], dim=1)   # toward the wall
     wall_v = torch.cat([p.vel for p in parts], dim=1)
-    kn, gn, kt, gt = hertz_coefficients(params.wall_material, params.mass, r)
-
+    if bc_tan_disp is None:
+        bc_tan_disp = torch.zeros_like(n)
+    kn, gn, kt, gt = contact_coefficients(params, params.wall_material,
+                                          params.mass, r)
     overlap = -gap
-    nh = (-n_into).unbind(-1)          # from the particle toward the wall
+    active = overlap > 0
     arm = r - 0.5 * overlap
-    cr = _cross([w[:, None] for w in omega.unbind(-1)], nh)
-    vr = [wall_v[..., a] - vel[:, None, a] - arm * cr[a] for a in range(3)]
-    pf = _pair_force(nh, torch.clamp(overlap, min=0.0), vr, overlap > 0, kn,
-                     gn, kt, gt, params.material.mu_s, params.dt,
-                     params.friction_mode == "single_step")
-    tq = _cross(nh, pf)
-    force = torch.stack([f.sum(-1) for f in pf], dim=-1)
-    torque = torch.stack([(arm * t).sum(-1) for t in tq], dim=-1)
-    # reactions: contact points p + arm·n̂, moments about the origin
-    p_c = [pos[:, None, a] + arm * nh[a] for a in range(3)]
-    react_f = -torch.stack([f.sum(0) for f in pf], dim=-1)
-    react_tau = -torch.stack([t.sum(0) for t in _cross(p_c, pf)], dim=-1)
-    return force, torque, (react_f, react_tau)
+    lever = arm[..., None] * n
+    v_rel = wall_v - (vel[:, None, :] + torch.linalg.cross(
+        omega[:, None, :].expand_as(lever), lever, dim=-1))
+    f_pair, xi_new, _ = _history_pair_force(
+        params, n, overlap, v_rel, bc_tan_disp, active, kn, gn, kt, gt)
+    force = torch.sum(f_pair, dim=1)
+    tau = torch.sum(torch.linalg.cross(lever, f_pair, dim=-1), dim=1)
+    react = _wall_reactions(pos, arm, n, f_pair)
+    delta = torch.clamp(overlap, min=0.0)
+    fn = torch.where(active, torch.clamp(kn * torch.sqrt(delta) * delta,
+                                         min=0.0), 0.0)
+    w_rel = -omega[:, None, :]                            # walls don't spin
+    if params.rolling_mode == "schwartz":
+        tau = tau + _schwartz_torque(params.wall_material.mu_r, arm, fn,
+                                     w_rel.expand_as(lever), active)
+    elif (params.rolling_mode == "elastic_plastic"
+          and bc_roll_disp is not None):
+        t_roll, xi_r = _rolling_spring(params.wall_material.mu_r,
+                                       kt * r * r, arm, fn,
+                                       bc_roll_disp + w_rel * params.dt,
+                                       active)
+        return force, tau + t_roll, xi_new, react, xi_r
+    return force, tau, xi_new, react

@@ -4,8 +4,9 @@ Ported: the suspension templates (``suspension``), the tire models
 (``tire``: TMeasy, Fiala, Pacejka 89 and 2002, TMsimple), rigid and SCM
 terrain (``terrain``), the powertrain, the drivers, the wheeled vehicle
 and its step (``wheeled``), the closed path-following loop
-(``closed_loop``) and the drawbar-pull rig (``dbp``).  Granular terrain,
-OpenCRG roads, tracked vehicles and the FEA tire wait for later slices.
+(``closed_loop``), the drawbar-pull rig (``dbp``) and granular (DEM)
+terrain (``granular_terrain``).  OpenCRG roads, tracked vehicles and the
+FEA tire wait for later slices.
 """
 
 from chrono_tpu_torch.vehicle.tire import (
@@ -31,3 +32,7 @@ from chrono_tpu_torch.vehicle.closed_loop import (
     closed_loop_step, run_closed_loop,
 )
 from chrono_tpu_torch.vehicle.dbp import dbp_curve, run_dbp_rig
+from chrono_tpu_torch.vehicle.granular_terrain import (
+    GranularFSIState, granular_step, make_granular_advance_fn,
+    make_granular_terrain_state,
+)

@@ -210,7 +210,7 @@ def test_wall_forces_match_jax(jax_cones, friction_mode):
     tp = convert.params_from_numpy(leaves(p))
     bcs = convert.dem_boundaries_from_numpy(walls)
     args = [torch.from_numpy(a) for a in (pos, vel, omega)]
-    f, t, (rf, rt) = wall_forces(tp, bcs, *args)
+    f, t, _, (rf, rt) = wall_forces(tp, bcs, *args)
     f_scale = float(jnp.abs(f_ref).max())
     assert f_scale > 0 and tuple(rf.shape) == (10, 3)
     t_atol = 1e-5 * max(float(jnp.abs(t_ref).max()), R * f_scale)
@@ -231,25 +231,103 @@ def test_wall_forces_match_jax(jax_cones, friction_mode):
     if friction_mode == "single_step":
         wall_mu = dataclasses.replace(tp.material,
                                       mu_s=tp.wall_material.mu_s)
-        f2, _, _ = wall_forces(dataclasses.replace(tp, material=wall_mu),
-                               bcs, *args)
+        f2 = wall_forces(dataclasses.replace(tp, material=wall_mu), bcs,
+                         *args)[0]
         assert not np.allclose(f2.numpy(), f_ref, rtol=1e-4,
                                atol=1e-5 * f_scale)
     else:
         assert float(t.abs().max()) <= t_atol      # no tangential force
 
 
-def test_wall_forces_refuse_history_and_rolling():
-    tp = convert.params_from_numpy(leaves(_params("single_step")))
-    bcs = convert.dem_boundaries_from_numpy(_walls(np.random.default_rng(1)))
+def _wall_case(friction_mode, rolling_mode, force_model, seed):
+    """600 particles against the ten walls of ``_walls`` with a random
+    wall history (N, 10, 3) and rolling displacement: the JAX
+    ``wall_forces`` and the port's outputs, the same inputs."""
+    rng = np.random.default_rng(seed)
+    walls = _walls(rng)
+    pos = _points(rng)
+    vel = rng.normal(0, 2.0, pos.shape).astype(np.float32)
+    omega = rng.normal(0, 40.0, pos.shape).astype(np.float32)
+    hist = rng.normal(0, 1e-4, (len(pos), 10, 3)).astype(np.float32)
+    roll = rng.normal(0, 1e-3, (len(pos), 10, 3)).astype(np.float32)
+    p = _params(friction_mode, rolling_mode).replace(
+        force_model=force_model,
+        material=DEMMaterial(youngs=jnp.asarray(2e7), mu_s=jnp.asarray(0.6),
+                             mu_r=jnp.asarray(0.3), kn=jnp.asarray(3e5),
+                             gn=jnp.asarray(30.0), kt=jnp.asarray(2e5),
+                             gt=jnp.asarray(10.0)),
+        wall_material=DEMMaterial(youngs=jnp.asarray(5e6),
+                                  restitution=jnp.asarray(0.3),
+                                  mu_s=jnp.asarray(0.15),
+                                  mu_r=jnp.asarray(0.1), kn=jnp.asarray(4e5),
+                                  gn=jnp.asarray(20.0), kt=jnp.asarray(3e5),
+                                  gt=jnp.asarray(15.0)))
+    ep = rolling_mode == "elastic_plastic"
+    ref = jforces.wall_forces(
+        p, _jax_bcs(walls), *(jnp.asarray(a) for a in (pos, vel, omega)),
+        jnp.asarray(hist), jnp.asarray(roll) if ep else None)
+    got = wall_forces(convert.params_from_numpy(leaves(p)),
+                      convert.dem_boundaries_from_numpy(walls),
+                      *(torch.from_numpy(a) for a in (pos, vel, omega)),
+                      torch.from_numpy(hist),
+                      torch.from_numpy(roll) if ep else None)
+    return ref, got
+
+
+def test_wall_forces_refuse_history_and_rolling(jax_cones):
+    """What the wall pass refused (multi-step history, rolling, the user
+    model) now runs and matches JAX, the JAX 4-tuple without and the
+    5-tuple with an elastic–plastic rolling state; with no walls the pass
+    gives zeros, empty reactions and the history as it came."""
+    ref, got = _wall_case("multi_step", "elastic_plastic", "user", 6)
+    assert len(ref) == len(got) == 5
+    f_scale = float(jnp.abs(ref[0]).max())
+    np.testing.assert_allclose(got[0].numpy(), ref[0], rtol=1e-4,
+                               atol=1e-5 * f_scale)
+    np.testing.assert_allclose(got[4].numpy(), ref[4], rtol=1e-4,
+                               atol=1e-5 * float(jnp.abs(ref[4]).max()))
+    tp = convert.params_from_numpy(leaves(_params("single_step",
+                                                  "schwartz")))
+    assert tp.rolling_mode == "schwartz"
     z = torch.zeros((4, 3))
-    with pytest.raises(ValueError):
-        wall_forces(dataclasses.replace(tp, friction_mode="multi_step"), bcs,
-                    z, z, z)
-    f, t, (rf, _) = wall_forces(tp, t_bc.DEMBoundaries(), z, z, z)
-    assert f.abs().max() == 0 and tuple(rf.shape) == (0, 3)
-    with pytest.raises(NotImplementedError):
-        convert.params_from_numpy(leaves(_params("single_step", "schwartz")))
+    h = torch.ones((4, 0, 3))
+    f, t, xi, (rf, _) = wall_forces(tp, t_bc.DEMBoundaries(), z, z, z, h)
+    assert f.abs().max() == 0 and tuple(rf.shape) == (0, 3) and xi is h
+
+
+@pytest.mark.parametrize("friction_mode,rolling_mode,force_model", [
+    ("multi_step", "none", "mat_based"),
+    ("multi_step", "schwartz", "mat_based"),
+    ("single_step", "elastic_plastic", "mat_based"),
+    ("frictionless", "schwartz", "user"),
+    ("multi_step", "elastic_plastic", "user")])
+def test_wall_history_and_rolling_match_jax(jax_cones, friction_mode,
+                                            rolling_mode, force_model):
+    """Force, torque, new wall history, reactions (and the new wall
+    rolling displacement) of ``_wall_case`` at the wall pass's
+    tolerances; the history and the displacement at rtol 1e-4 and 1e-5 of
+    their largest entry."""
+    ref, got = _wall_case(friction_mode, rolling_mode, force_model, 7)
+    assert len(got) == len(ref)
+    f_scale = float(jnp.abs(ref[0]).max())
+    assert f_scale > 0
+    np.testing.assert_allclose(got[0].numpy(), ref[0], rtol=1e-4,
+                               atol=1e-5 * f_scale)
+    t_atol = 1e-5 * max(float(jnp.abs(ref[1]).max()), R * f_scale)
+    np.testing.assert_allclose(got[1].numpy(), ref[1], rtol=1e-4,
+                               atol=t_atol)
+    rows = [(got[2], ref[2])] + ([(got[4], ref[4])] if len(ref) == 5
+                                 else [])
+    for g, r in rows:
+        scale = max(float(jnp.abs(r).max()), 1e-30)
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4,
+                                   atol=1e-5 * scale)
+    for g, r in zip(got[3], ref[3]):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4,
+                                   atol=1e-5 * max(float(jnp.abs(r).max()),
+                                                   f_scale))
+    if friction_mode == "frictionless":
+        assert not got[2].any()
 
 
 @functools.cache
