@@ -210,6 +210,26 @@ once) and then runs:
    (tools/dem_dam_break_reference.py); (e) the granular rig's 550 outer
    steps with its test's assertions, and the same wheel on a 2.0 × 0.5 ×
    0.1 m bed of r = 5 mm spheres, 200 timed outer steps of 20 substeps.
+17. convex contact, tracked vehicles and the other steppers (no kernel on
+   their path): (a) the card against the port on the CPU and two card runs
+   bit for bit: 1,000 random MPR pairs over the five convex kinds (float64
+   within MPR's tolerance, the ill-conditioned pairs, whose CPU answer
+   moves past it when positions and orientations move by 1e-9 or 1e-7,
+   excluded; float32 bit for bit and finite), 50 ``nsc_step``s of the
+   capsule on a box and of the cylinder on the mesh ramp (float64, card
+   against CPU, the first 10 steps of two card runs bit for bit), HHT on
+   the stiff spring (the Newton iterations and ``h_used`` of every step
+   equal), RK4 on the gyroscope and the hydraulic actuator; (b) the M113
+   acceleration run (btest_VEH_m113Acc: 3,000 steps of 2 ms at 6,000 N·m
+   a sprocket) through ``m113_acceleration_run``'s CUDA graph of
+   ``tracked_step``, twice bit for bit, 200 eager steps against the graph,
+   timed (ms a step, kernels a step, RTF) and held to the JAX run's speeds
+   (tools/m113_reference.py), then ``build_marder`` with
+   tests/test_model_decks.py's checks; (c) tests/test_tracked.py's geared
+   single-pin rig (ω 6 rad/s, μ_rim 0.1, the gear on) for 25 steps (1.15 s
+   a step on the card), timed (ms, kernels and host reads a step),
+   checked finite and for loop integrity (pin distances within 15 % of the
+   pitch), its first 20 card steps each stepped once on the CPU.
 
 It prints the card's name and power limit, the build time, the errors and
 times, one JSON line describing each kernel (with its bound: the least time
@@ -300,12 +320,19 @@ from chrono_tpu_torch.ops.cuda.migrate import (
 )
 from chrono_tpu_torch.ops.nsc_pair import wall_geometry
 from chrono_tpu_torch.collision import (
-    BoxShapes, CollisionModel, SphereShapes, nsc_step,
+    BoxShapes, CollisionModel, ConvexShapes, MeshShapes, SphereShapes,
+    nsc_step,
 )
+from chrono_tpu_torch.collision.mpr import ConvexShape, mpr_contact
 from chrono_tpu_torch.collision.cell_list import cell_occupancy_max
 from chrono_tpu_torch.core.functions import FConst
 from chrono_tpu_torch.physics import SystemBuilder
 from chrono_tpu_torch.physics.body import BodyState
+from chrono_tpu_torch.physics.explicit import step_rk4
+from chrono_tpu_torch.physics.external import (
+    HydraulicParams, make_hydraulic_actuator, make_ode_coupled_step,
+)
+from chrono_tpu_torch.physics.implicit import make_hht_mbs_step
 from chrono_tpu_torch.physics.smc import SMCParams, smc_step
 from chrono_tpu_torch.physics.joints import JOINT_TYPES, joint_violation
 from chrono_tpu_torch.physics.system import (
@@ -323,8 +350,9 @@ from chrono_tpu_torch.vehicle.suspension import (
 )
 from chrono_tpu_torch.core import quaternion as Q
 from chrono_tpu_torch.models import (
-    create_curiosity, create_hmmwv, create_polaris, create_sedan,
-    rover_step_scm, set_wheel_speeds,
+    build_m113, build_marder, create_curiosity, create_hmmwv,
+    create_polaris, create_sedan, m113_acceleration_run, rover_step_scm,
+    set_wheel_speeds,
 )
 from chrono_tpu_torch.utils.graph import capture
 from chrono_tpu_torch.utils.tree import fields_as_tensors
@@ -339,6 +367,11 @@ from chrono_tpu_torch.vehicle.closed_loop import (
 from chrono_tpu_torch.vehicle.granular_terrain import (
     GranularFSIState, make_granular_advance_fn, make_granular_terrain_state,
 )
+from chrono_tpu_torch.vehicle.track_shoes import (
+    add_segmented_track, ground_shape, make_sprocket_gear,
+    matched_track_span, sprocket_gear_contacts, track_collision_shapes,
+)
+from chrono_tpu_torch.vehicle.tracked import tracked_step
 
 DEV = torch.device("cuda", 0)
 G = 9.81
@@ -5819,6 +5852,588 @@ def dem_system_main_path(card):
         print(f"phase 16 ({part}) took {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------- phase 17
+
+# The JAX run of `JAX_PLATFORMS=cpu python tools/m113_reference.py --port`:
+# chrono_tpu.models.m113.m113_acceleration_run (3,000 steps of 2 ms at
+# 6,000 N·m a sprocket from rest on flat ground), the chassis speed after
+# steps 0, 50, ..., 2,950, and the Marder check of tests/test_model_decks.py
+# (600 steps at 16,000 N·m) after its last step.
+M113_H = 2e-3
+M113_STEPS = 3000
+M113_EAGER_STEPS = 200
+JAX_M113_SPEEDS = (
+    0.0, 0.37735089659690857, 0.7564682960510254, 1.125618577003479,
+    1.4963375329971313, 1.8706961870193481, 2.247736930847168,
+    2.6250123977661133, 3.00134539604187, 3.377012252807617,
+    3.7525599002838135, 4.128264427185059, 4.504120349884033,
+    4.880021572113037, 5.255898952484131, 5.631743431091309,
+    6.007568359375, 6.383402347564697, 6.7592453956604, 7.1350884437561035,
+    7.510931491851807, 7.88677453994751, 8.262618064880371,
+    8.638461112976074, 9.014304161071777, 9.39014720916748,
+    9.765990257263184, 10.141833305358887, 10.51767635345459,
+    10.893519401550293, 11.269362449645996, 11.6452054977417,
+    12.021048545837402, 12.396891593933105, 12.772734642028809,
+    13.148577690124512, 13.524420738220215, 13.900263786315918,
+    14.276106834411621, 14.651949882507324, 15.027792930603027,
+    15.40363597869873, 15.779479026794434, 16.15532112121582,
+    16.531164169311523, 16.907007217407227, 17.28285026550293,
+    17.658693313598633, 18.034536361694336, 18.41037940979004,
+    18.786222457885742, 19.162065505981445, 19.53790855407715,
+    19.91375160217285, 20.289594650268555, 20.665437698364258,
+    21.04128074645996, 21.417123794555664, 21.792966842651367,
+    22.16880989074707,
+)
+JAX_MARDER_SPEED = 4.562633514404297
+MARDER_STEPS, MARDER_TORQUE = 600, 16000.0
+# The same tool's port on the CPU: float32 within 2.4e-7 m/s of the JAX
+# speeds, float64 within 8.7e-5 m/s (the float32 floor of the run); the
+# Marder's final speed float32 6.3e-4 m/s and float64 1.1e-3 m/s from the
+# JAX run's.  The card is held at ten times each floor, rounded up.
+M113_SPEED_ATOL = 1e-3
+MARDER_SPEED_ATOL = 0.02
+# (a): 1,000 MPR pairs card against CPU, in float64 as
+# tests/test_torch_mpr.py holds them (its tolerance; the ill-conditioned
+# pairs excluded)
+MPR_PAIRS = 1000
+MPR_TOL = {"gap": 1e-5, "normal": 1e-4, "point": 1e-4}
+CONVEX_SCENE_STEPS = 50
+CONVEX_REPEAT_STEPS = 10
+HHT_STEPS = 10
+RK4_STEPS = 100
+HYDRAULIC_STEPS = 60
+# (c): the geared single-pin rig of tests/test_tracked.py's TestSprocketGear.
+# A step is 1.15 s on the card (56,083 kernels: APGD's 300 iterations of
+# ~180 launches), so the issue's 60 s and 100 steps would take 115 s and
+# push chip_smoke.py past its 1,200 s: the run is cut to 25 steps
+RIG_STEPS = 25
+RIG_CPU_STEPS = 20
+
+
+def perturbed(state, seed, scale):
+    """``state`` with each float leaf moved by ~``scale`` relative."""
+    g = torch.Generator().manual_seed(seed)
+
+    def p(a):
+        noise = torch.randn(a.shape, generator=g, dtype=torch.float64)
+        return a * (1.0 + scale * noise.to(a.dtype).to(a.device))
+
+    return state.replace(**{f: p(getattr(state, f)) for f in "xqvw"})
+
+
+def state_cpu(st):
+    return BodyState(**{f: getattr(st, f).detach().cpu() for f in "xqvw"})
+
+
+def within_response(got, ref, resp, what):
+    """Each field within the North star's tolerance, its atol widened to
+    twice ``resp[field]`` (the reference's own response to perturbations
+    of its input) where that is larger; returns the largest error."""
+    worst = 0.0
+    for f, tol in (("x", POS_TOL), ("q", POS_TOL), ("v", VEL_TOL),
+                   ("w", VEL_TOL)):
+        worst = max(worst, assert_close(
+            getattr(got, f), getattr(ref, f), tol["rtol"],
+            max(tol["atol"], 2.0 * resp.get(f, 0.0)), f"{what} {f}"))
+    return worst
+
+
+def response(run, base, seeds=(1, 2)):
+    """Largest change of each field of ``run(seed)`` against ``base``."""
+    out = {}
+    for s in seeds:
+        st = run(s)
+        for f in "xqvw":
+            out[f] = max(out.get(f, 0.0), float(
+                (getattr(st, f).double() - getattr(base, f).double()).abs()
+                .max()))
+    return out
+
+
+def mpr_random_pairs(n, seed=0):
+    """``n`` pairs over the five kinds (each kind against each), rotated,
+    touching and separated (tests/test_torch_mpr.py's generator)."""
+    rng = np.random.default_rng(seed)
+    kind = np.tile(np.arange(5, dtype=np.int32), (2, n // 5 + 1))[:, :n]
+    kind[1] = rng.permutation(kind[1])
+    pos = rng.uniform(-1.0, 1.0, (2, n, 3)).astype(np.float32)
+    q = rng.normal(size=(2, n, 4))
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    data = rng.uniform(0.3, 0.8, (2, n, 3)).astype(np.float32)
+    verts = rng.uniform(-0.6, 0.6, (2, n, 8, 3)).astype(np.float32)
+    return kind, pos, q, data, verts
+
+
+def mpr_on(device, arrays, pos=None, rot=None):
+    kind, pos0, q0, data, verts = arrays
+    pos = pos0 if pos is None else pos
+    q = q0 if rot is None else rot
+    sh = [ConvexShape(*(torch.as_tensor(a[i], device=device)
+                        for a in (kind, pos, q, data, verts)))
+          for i in (0, 1)]
+    return [x.cpu() for x in mpr_contact(*sh)]
+
+
+def mpr_card_vs_cpu(card):
+    """Float64, as tests/test_torch_mpr.py holds the port to JAX: a pair
+    is ill-conditioned where the CPU answer itself moves past
+    ``MPR_TOL`` when the positions and orientations move by ~1e-9 or
+    ~1e-7 (two ways each; the card's rounding differs from the CPU's
+    inside the rotations, so orientations are moved too, which the test
+    against JAX on the CPU does not need); the others are held at
+    ``MPR_TOL``, and the ill-conditioned ones must stay under a
+    quarter.  In float32 (the card's own rounding: FMA
+    contraction inside a kernel, division by a reciprocal) two card runs
+    are held bit for bit and finite."""
+    arrays = mpr_random_pairs(MPR_PAIRS)
+    a32, b32 = mpr_on(DEV, arrays), mpr_on(DEV, arrays)
+    require(all(torch.equal(x, y) for x, y in zip(a32, b32))
+            and all(bool(torch.isfinite(x).all()) for x in a32),
+            "MPR float32: two card runs differ or are not finite")
+    ref32 = mpr_on("cpu", arrays)
+    arrays64 = tuple(x.astype(np.float64) if x.dtype == np.float32 else x
+                     for x in arrays)
+    a = mpr_on(DEV, arrays64)
+    require(all(torch.equal(x, y) for x, y in zip(a, mpr_on(DEV, arrays64))),
+            "MPR float64: two card runs differ")
+    ref = mpr_on("cpu", arrays64)
+
+    def bad(got):
+        return ((got[0] - ref[0]).abs() > MPR_TOL["gap"]) | (
+            (got[1] - ref[1]).abs().amax(1) > MPR_TOL["normal"]) | (
+            (got[2] - ref[2]).abs().amax(1) > MPR_TOL["point"])
+
+    rng = np.random.default_rng(1)
+    ill = torch.zeros(MPR_PAIRS, dtype=torch.bool)
+    for scale in (1e-9, 1e-9, 1e-7, 1e-7):
+        pos = arrays64[1] + scale * rng.normal(size=arrays64[1].shape)
+        rot = arrays64[2] + scale * rng.normal(size=arrays64[2].shape)
+        rot /= np.linalg.norm(rot, axis=-1, keepdims=True)
+        ill |= bad(mpr_on("cpu", arrays64, pos, rot))
+    off = bad(a) & ~ill
+    require(int(ill.sum()) < MPR_PAIRS // 4 and not bool(off.any()),
+            f"MPR card vs CPU: {int(off.sum())} well-conditioned pairs off "
+            f"({torch.nonzero(off).flatten().tolist()[:10]}), "
+            f"{int(ill.sum())} ill-conditioned")
+    keep = ~ill
+    errs = [float((x[keep] - y[keep]).abs().max()) for x, y in zip(a, ref)]
+    e32 = [float((x - y).abs().max()) for x, y in zip(a32, ref32)]
+    print(f"MPR, {MPR_PAIRS} random pairs over the five kinds "
+          f"({int((ref[0] < 0).sum())} touching): two card runs bit for "
+          f"bit in float32 and float64; float64 card vs CPU on the "
+          f"{int(keep.sum())} well-conditioned pairs max |Δgap| "
+          f"{errs[0]:.3e}, |Δn| {errs[1]:.3e}, |Δp| {errs[2]:.3e} "
+          f"({int(ill.sum())} ill-conditioned, excluded); float32 card vs "
+          f"CPU on all pairs |Δgap| {e32[0]:.3e}, |Δn| {e32[1]:.3e}, |Δp| "
+          f"{e32[2]:.3e} [{card}]")
+
+
+def capsule_box_scene(device):
+    """tests/test_contact.py's TestConvexNSC: a capsule (axis along world
+    x) sunk to z = 0.2 into a ground box."""
+    b = SystemBuilder(device=device)
+    g = b.add_ground()
+    cap = b.add_body(mass=2.0, inertia=(0.1, 0.15, 0.15), pos=(0.0, 0.0, 0.2))
+    model, state = b.finalize()
+    c = np.cos(np.pi / 4)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    convex = ConvexShapes(
+        body=t([g, cap], torch.int32), kind=t([1, 2], torch.int32),
+        pos=t([[0.0, 0.0, -0.5], [0.0, 0.0, 0.0]]),
+        rot=t([[1.0, 0, 0, 0], [c, 0.0, c, 0.0]]),
+        data=t([[10.0, 10.0, 0.5], [0.25, 0.3, 0.0]]),
+        verts=t(np.zeros((2, 8, 3))), mu=t([0.5, 0.5]))
+    coll = CollisionModel(
+        spheres=no_spheres(device), boxes=None, convex=convex,
+        grid=GridSpec(origin=(-12.0, -12.0, -2.0), cell_size=1.2,
+                      dims=(20, 20, 8)), max_per_cell=8, max_contacts=16)
+    return model, coll, state, SolverSettings(
+        solver="apgd", max_iter=120, stab_factor=0.2), 2e-3, None
+
+
+def mesh_ramp_scene(device):
+    """tests/test_mesh_contact.py's cylinder (axis along world y) on a mesh
+    ramp of two triangles tilted 15°, envelope 0.01."""
+    b = SystemBuilder(device=device)
+    g = b.add_ground()
+    cyl = b.add_body(mass=2.0, inertia=(0.1, 0.1, 0.1), pos=(0.0, 0.0, 0.3))
+    model, state = b.finalize()
+    ang = np.deg2rad(15)
+    verts = [(x * np.cos(ang), y, -x * np.sin(ang))
+             for (x, y) in [(-1.5, -1), (1.5, -1), (1.5, 1), (-1.5, 1)]]
+    meshes = MeshShapes.from_mesh(g, verts, [(0, 1, 2), (0, 2, 3)], mu=0.1,
+                                  device=device)
+    c = np.cos(np.pi / 4)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    convex = ConvexShapes(
+        body=t([cyl], torch.int32), kind=t([3], torch.int32),
+        pos=t(np.zeros((1, 3))), rot=t([[c, c, 0.0, 0.0]]),
+        data=t([[0.3, 0.4, 0.0]]), verts=t(np.zeros((1, 8, 3))),
+        mu=t([0.1]))
+    coll = CollisionModel(
+        spheres=no_spheres(device), boxes=None, convex=convex,
+        meshes=meshes, grid=GridSpec(origin=(-4, -4, -2), cell_size=1.2,
+                                     dims=(8, 8, 6)),
+        max_contacts=32, envelope=0.01)
+    return model, coll, state, SolverSettings(solver="apgd", max_iter=100), \
+        1e-3, None
+
+
+def no_spheres(device):
+    return SphereShapes(body=torch.zeros((0,), dtype=torch.int32,
+                                         device=device),
+                        offset=torch.zeros((0, 3), device=device),
+                        radius=torch.zeros((0,), device=device),
+                        mu=torch.zeros((0,), device=device))
+
+
+def as_float64(obj):
+    """The carriers with their float tensors in float64."""
+    if isinstance(obj, torch.Tensor):
+        return obj.double() if obj.is_floating_point() else obj
+    if isinstance(obj, dict):
+        return {k: as_float64(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: as_float64(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def convex_scene_run(scene, device, n, seed=None, snap=None):
+    """``n`` float64 steps of a convex scene (and the state after ``snap``
+    steps); ``seed`` moves its start by ~1e-12 relative."""
+    model, coll, state, settings, h, xcf = scene(device)
+    model, coll, state = (as_float64(x) for x in (model, coll, state))
+    if seed is not None:
+        state = perturbed(state, seed, 1e-12)
+    t = torch.zeros((), dtype=state.x.dtype, device=device)
+    at_snap = None
+    for k in range(n):
+        state, _, _ = nsc_step(model, coll, state, t, h, settings,
+                               extra_contacts_fn=xcf)
+        t = t + h
+        if k + 1 == snap:
+            at_snap = state
+    return (state, at_snap) if snap else state
+
+
+def card_vs_cpu(run, what, card):
+    """``run(device, seed)`` twice on the card (bit for bit) and on the
+    CPU; the card held to the CPU within the North star's tolerances,
+    widened by the CPU run's own response to two small perturbations of
+    its start where that is larger."""
+    a, b = run(DEV, None), run(DEV, None)
+    require(state_equal(a, b), f"{what}: two card runs differ")
+    ref = run("cpu", None)
+    resp = response(lambda s: run("cpu", s), ref)
+    err = within_response(state_cpu(a), ref, resp, f"{what} card vs CPU")
+    print(f"{what}: two card runs bit for bit; card vs CPU max abs err "
+          f"{err:.3e} (the CPU run's own response to perturbations "
+          + ", ".join(f"{f} {v:.1e}" for f, v in resp.items()) + f") [{card}]")
+
+
+def stiff_spring_model(device, k=1e7):
+    b = SystemBuilder(device=device)
+    b.set_gravity((0, 0, -9.81))
+    g = b.add_ground()
+    blk = b.add_body(mass=1.0, inertia=(0.1, 0.1, 0.1), pos=(0, 0, -1.0))
+    b.add_tsda(g, blk, (0, 0, 0), (0, 0, -1.0), k=k, c=200.0)
+    return b.finalize()
+
+
+def hht_run(device, seed=None, log=None):
+    """tests/test_implicit_mbs.py's stiff spring under HHT (α −0.2, 10
+    Newton iterations, tol 1e-4) at h = 1e-3."""
+    model, state = stiff_spring_model(device)
+    if seed is not None:
+        state = perturbed(state, seed, 1e-7)
+    step = make_hht_mbs_step(model, alpha=-0.2, newton_iters=10, tol=1e-4)
+    acc = torch.zeros((model.n_bodies, 6), device=device)
+    t = 0.0
+    for _ in range(HHT_STEPS):
+        out = step(state, acc, t, 1e-3)
+        state, acc = out.state, out.acc
+        t += float(out.h_used)
+        if log is not None:
+            log.append((int(out.iterations), float(out.h_used)))
+    return state
+
+
+def gyro_run(device, seed=None):
+    b = SystemBuilder(device=device)
+    b.set_gravity((0, 0, 0))
+    b.add_body(mass=1.0, inertia=(1.0, 1.0, 2.0), omega_local=(0.1, 0.0, 5.0))
+    model, state = b.finalize()
+    if seed is not None:
+        state = perturbed(state, seed, 1e-7)
+    t = torch.zeros((), device=device)
+    for _ in range(RK4_STEPS):
+        state = step_rk4(model, state, t, 1e-3)
+        t = t + 1e-3
+    return state
+
+
+def hydraulic_run(device, seed=None, pressures=None):
+    """tests/test_external_ode.py's cylinder under a 100 kg load on a rail,
+    the valve open for the first half of the run."""
+    b = SystemBuilder(device=device)
+    b.set_gravity((0, 0, -9.81))
+    g = b.add_ground()
+    load = b.add_body(mass=100.0, inertia=(1, 1, 1), pos=(0, 0, -0.5))
+    b.add_joint("prismatic", load, g, world_pos=(0, 0, -0.5),
+                world_axis=(0, 0, 1))
+    model, state = b.finalize()
+    if seed is not None:
+        state = perturbed(state, seed, 1e-7)
+    h, t_close = 2e-4, HYDRAULIC_STEPS // 2 * 2e-4
+    hp = HydraulicParams(stroke0=torch.tensor(0.7, device=device))
+    y, rhs = make_hydraulic_actuator(
+        model, g, load, (0, 0, -1.2), (0, 0, 0), hp,
+        lambda t: torch.where(t < t_close, 0.8, 0.0))
+    step = make_ode_coupled_step(model, rhs, h)
+    t = torch.zeros((), device=device)
+    for _ in range(HYDRAULIC_STEPS):
+        state, y, _ = step(state, y, t)
+        t = t + h
+    if pressures is not None:
+        pressures.append(y.cpu())
+    return state
+
+
+def integrators_card_vs_cpu(card):
+    logs = {}
+    for dev in (DEV, "cpu"):
+        logs[str(dev)] = []
+        hht_run(dev, log=logs[str(dev)])
+    require(logs[str(DEV)] == logs["cpu"],
+            f"HHT Newton iterations / h_used, card {logs[str(DEV)]} vs CPU "
+            f"{logs['cpu']}")
+    print(f"HHT, stiff spring, {HHT_STEPS} steps: Newton iterations and "
+          f"h_used a step equal on card and CPU "
+          f"({[n for n, _ in logs['cpu']]}, h_used "
+          f"{sorted({h for _, h in logs['cpu']})})")
+    card_vs_cpu(lambda d, s: hht_run(d, s), f"HHT stiff spring, "
+                f"{HHT_STEPS} steps", card)
+    card_vs_cpu(gyro_run, f"RK4 gyroscope, {RK4_STEPS} steps", card)
+    p = []
+    card_vs_cpu(lambda d, s: hydraulic_run(d, s, p if s is None else None),
+                f"hydraulic actuator, {HYDRAULIC_STEPS} steps", card)
+    require(torch.equal(p[0], p[1]), "hydraulic: two card runs' pressures")
+    err = assert_close(p[0], p[2], 1e-4, 1e-4 * 1e7, "hydraulic pressures")
+    print(f"hydraulic actuator: chamber pressures card vs CPU max abs err "
+          f"{err:.3e} Pa of {float(p[2].abs().max()):.6e} [{card}]")
+
+
+def convex_card_vs_cpu(card):
+    """(a): MPR pairs, the convex scenes, HHT, RK4 and the actuator.  The
+    convex scenes are held card against CPU in float64: in float32 the
+    mesh ramp's cylinder, lying across its two triangles' shared edge,
+    flips a manifold point between the faces at the rounding floor (~2e-4
+    m in 50 steps, the card against the CPU).  A scene's eager step is
+    ~0.4 s on the card (APGD's ~180 launches an iteration, 100–120
+    iterations), so the bit-for-bit repeat runs its first
+    ``CONVEX_REPEAT_STEPS`` steps."""
+    t0 = time.perf_counter()
+    mpr_card_vs_cpu(card)
+    n, n2 = CONVEX_SCENE_STEPS, CONVEX_REPEAT_STEPS
+    for name, scene in (("capsule on box", capsule_box_scene),
+                        ("cylinder on mesh ramp", mesh_ramp_scene)):
+        print(f"  (a) {time.perf_counter() - t0:.1f} s so far")
+        what = f"{name}, {n} nsc_steps in float64"
+        a, a_snap = convex_scene_run(scene, DEV, n, snap=n2)
+        require(state_equal(a_snap, convex_scene_run(scene, DEV, n2)),
+                f"{what}: two card runs differ")
+        ref = convex_scene_run(scene, "cpu", n)
+        resp = response(
+            lambda s, sc=scene: convex_scene_run(sc, "cpu", n, s), ref)
+        err = within_response(state_cpu(a), ref, resp, f"{what} card vs CPU")
+        print(f"{what}: the first {n2} steps of two card runs bit for bit; "
+              f"card vs CPU max abs err {err:.3e} (the CPU run's own "
+              f"response to 1e-12 perturbations " + ", ".join(
+                  f"{f} {v:.1e}" for f, v in resp.items()) + f") [{card}]")
+    print(f"  (a) {time.perf_counter() - t0:.1f} s so far")
+    integrators_card_vs_cpu(card)
+
+
+def m113_eager_samples(n, device):
+    """``n`` eager ``tracked_step``s of the M113 run, sampled as
+    ``m113_acceleration_run`` samples."""
+    veh, state = build_m113(device=device)
+    tq = torch.full((2,), 6000.0, device=device)
+    flat = flat_terrain(0.0)
+    out = []
+    for k in range(n):
+        state = tracked_step(veh, state, tq, flat, M113_H).state
+        if k % 50 == 0:
+            out.append(state.v[veh.chassis, 0].reshape(1))
+    return torch.cat(out).cpu().numpy()
+
+
+def m113_full(card):
+    """(b): the acceleration run through a graph of ``tracked_step``."""
+    m113_acceleration_run(n_steps=10, device=DEV)
+    (_, _), t_setup = mbs_timed(
+        lambda: m113_acceleration_run(n_steps=0, device=DEV))
+    (times, v1), t_run = mbs_timed(lambda: m113_acceleration_run(device=DEV))
+    _, v2 = m113_acceleration_run(device=DEV)
+    require(np.array_equal(v1, v2), "M113: two graph runs differ")
+    _, vg = m113_acceleration_run(n_steps=M113_EAGER_STEPS, device=DEV)
+    ve, t_eager = mbs_timed(lambda: m113_eager_samples(M113_EAGER_STEPS,
+                                                       DEV))
+    eq = np.array_equal(vg, ve)
+    rel = float(np.abs(vg - ve).max() / max(np.abs(ve).max(), 1e-30))
+    require(eq or rel <= DLC_REPLAY_RTOL, f"M113 graph vs eager: {rel}")
+    err = float(np.abs(v1 - np.asarray(JAX_M113_SPEEDS)).max())
+    require(err <= M113_SPEED_ATOL and len(v1) == len(JAX_M113_SPEEDS),
+            f"M113 vs the JAX run: max |Δv| {err}")
+    veh, state = build_m113(device=DEV)
+    tq = torch.full((2,), 6000.0, device=DEV)
+    step = lambda: tracked_step(veh, state, tq, flat_terrain(0.0), M113_H)
+    step()
+    _, events = device_events(step)
+    replay_ms = (t_run - t_setup) / M113_STEPS * 1e3
+    sim_s = M113_STEPS * M113_H
+    RATES["m113_ms_step"] = replay_ms
+    print(f"M113 acceleration, {M113_STEPS} steps of {M113_H} s at 6000 N·m "
+          f"a sprocket through the graph: {replay_ms:.4f} ms/step replayed "
+          f"(the call {t_run:.3f} s with build, warm-up and capture "
+          f"{t_setup:.3f} s), RTF {t_run / sim_s:.4f} (replay alone "
+          f"{(t_run - t_setup) / sim_s:.4f}); {len(events)} kernels an eager "
+          f"step; final speed {float(v1[-1]):.6f} m/s, JAX "
+          f"{JAX_M113_SPEEDS[-1]:.6f}, max |Δv| over the {len(v1)} samples "
+          f"{err:.3e} (≤ {M113_SPEED_ATOL}); two graph runs bit for bit; "
+          f"{M113_EAGER_STEPS} eager steps "
+          f"{'bit for bit' if eq else f'{rel:.3e} rel'} to the graph "
+          f"({t_eager / M113_EAGER_STEPS * 1e3:.4f} ms/step eager) [{card}]")
+    # build_marder with tests/test_model_decks.py's checks
+    veh, state = build_marder(device=DEV)
+    tq = torch.full((2,), MARDER_TORQUE, device=DEV)
+    for _ in range(MARDER_STEPS):
+        state = tracked_step(veh, state, tq, flat_terrain(0.0), M113_H).state
+    vx = float(state.v[veh.chassis, 0])
+    require(0.5 < vx < 15.0 and bool(torch.isfinite(state.x).all())
+            and abs(vx - JAX_MARDER_SPEED) <= MARDER_SPEED_ATOL,
+            f"Marder: vx {vx} (JAX {JAX_MARDER_SPEED})")
+    print(f"Marder, {MARDER_STEPS} steps at {MARDER_TORQUE} N·m a sprocket: "
+          f"vx {vx:.6f} m/s (JAX {JAX_MARDER_SPEED:.6f}, |Δ| ≤ "
+          f"{MARDER_SPEED_ATOL}; test window 0.5–15) [{card}]")
+
+
+def geared_rig(device):
+    """tests/test_tracked.py's TestSprocketGear rig: a pitch-matched
+    single-pin loop of 24 shoes on a chassis on an x-rail, the sprocket
+    driven at 6 rad/s, a slick rim (μ 0.1), the gear on; APGD 300
+    iterations, stab 0.05, h = 1e-3."""
+    wheel_r, shoe_h, shoe_w = 0.2, 0.05, 0.2
+    d = matched_track_span(wheel_r, shoe_h, 24, 16)
+    rp = wheel_r + 0.5 * shoe_h + 2e-3
+    zc = rp + 0.5 * shoe_h
+    bld = SystemBuilder(device=device)
+    bld.set_gravity((0, 0, -9.81))
+    g = bld.add_ground()
+    chassis = bld.add_body(mass=20.0, inertia=(2.0, 4.0, 5.0),
+                           pos=(d / 2, 0.0, zc))
+    bld.add_joint("prismatic", g, chassis, world_pos=(d / 2, 0.0, zc),
+                  world_axis=(1, 0, 0))
+    track = add_segmented_track(bld, chassis, (0.0, 0.0, zc), (d, 0.0, zc),
+                                wheel_r, n_shoes=24, shoe_h=shoe_h,
+                                shoe_w=shoe_w, shoe_mass=0.5)
+    bld.add_motor_rotation_speed(chassis, track.sprocket,
+                                 world_pos=(d, 0.0, zc), world_axis=(0, 1, 0),
+                                 profile=6.0, add_joint=False)
+    model, state = bld.finalize()
+    gear = make_sprocket_gear(track, state)
+    coll = CollisionModel(
+        spheres=no_spheres(device), boxes=None,
+        convex=track_collision_shapes(
+            track, mu_rim=0.1, extra=ground_shape(g, device=device)),
+        grid=GridSpec(origin=(-5, -5, -2), cell_size=1.0, dims=(12, 12, 4)),
+        max_per_cell=8, max_contacts=96)
+    settings = SolverSettings(solver="apgd", max_iter=300, stab_factor=0.05,
+                              max_recovery_speed=0.5)
+    return model, coll, state, settings, 1e-3, gear, track
+
+
+def rig_main(card):
+    """(c): the geared rig on the card for ``RIG_STEPS`` steps, timed; its
+    first 20 steps held against the port on the CPU, one step from each
+    card state (the solve stops at 300 iterations far from converged: a
+    free-running comparison parts within steps, so each step is held
+    within twice the CPU step's own response to two 1e-6 perturbations of
+    its state)."""
+    model, coll, state, settings, h, gear, track = geared_rig(DEV)
+    xcf = lambda s: sprocket_gear_contacts(gear, s)
+    t = torch.zeros((), device=DEV)
+    states = [state_cpu(state)]
+    tvi.reset_host_reads()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = RIG_STEPS
+    for k in range(n):
+        state, contacts, info = nsc_step(model, coll, state, t, h, settings,
+                                         extra_contacts_fn=xcf)
+        t = t + h
+        if k < RIG_CPU_STEPS:
+            states.append(state_cpu(state))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = tvi.host_reads()
+    _, events = device_events(lambda: nsc_step(
+        model, coll, state, t, h, settings, extra_contacts_fn=xcf))
+    sh = state.x[track.shoes].cpu()
+    pitch_d = (torch.roll(sh, -1, 0) - sh).norm(dim=1)
+    require(bool(torch.isfinite(state.x).all()) and bool(
+        ((pitch_d - track.pitch).abs() <= 0.15 * track.pitch).all()),
+        f"geared rig: the loop broke (pin distances {pitch_d.tolist()})")
+    RATES["rig_ms_step"] = wall / n * 1e3
+    print(f"geared single-pin rig (24 shoes, gear on, ω 6 rad/s, μ_rim 0.1, "
+          f"APGD 300 iterations), {n} steps on the card: "
+          f"{wall / n * 1e3:.3f} ms/step, RTF {wall / (n * h):.3f}, "
+          f"{len(events)} kernels a step, {reads / n:.1f} host reads a "
+          f"step, {int(contacts.count)} contacts; finite, pin distances "
+          f"{float(pitch_d.min()):.5f}–{float(pitch_d.max()):.5f} m "
+          f"(pitch {track.pitch:.5f}) [{card}]")
+    cm, cc, _, cs, _, cgear, _ = geared_rig("cpu")
+    cxcf = lambda s: sprocket_gear_contacts(cgear, s)
+    worst = 0.0
+    for k in range(RIG_CPU_STEPS):
+        tk = torch.full((), k * h)
+        one = lambda s: nsc_step(cm, cc, s, tk, h, cs,
+                                 extra_contacts_fn=cxcf)[0]
+        ref = one(states[k])
+        resp = response(lambda s: one(perturbed(states[k], s, 1e-6)), ref)
+        worst = max(worst, within_response(states[k + 1], ref, resp,
+                                           f"geared rig step {k}"))
+    print(f"geared rig, the first {RIG_CPU_STEPS} card steps each stepped "
+          f"once on the CPU from the card's state: max abs err "
+          f"{worst:.3e}, within twice the CPU step's own response [{card}]")
+
+
+def tracked_main_path(card):
+    """Phase 17: convex contact, tracked vehicles and the other steppers:
+    (a) card against CPU, (b) the M113 acceleration run and the Marder,
+    (c) the geared track rig."""
+    # the CPU references here are small eager steps, which one thread runs
+    # faster than eight
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for part, fn in (("a", convex_card_vs_cpu), ("b", m113_full),
+                         ("c", rig_main)):
+            t0 = time.perf_counter()
+            fn(card)
+            print(f"phase 17 ({part}) took {time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.set_num_threads(threads)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5983,6 +6598,12 @@ def main():
     t0 = time.perf_counter()
     dem_system_main_path(card)
     print(f"phase 16 took {time.perf_counter() - t0:.2f} s")
+
+    # phase 17: convex contact, tracked vehicles and the other steppers (no
+    # kernel on their path)
+    t0 = time.perf_counter()
+    tracked_main_path(card)
+    print(f"phase 17 took {time.perf_counter() - t0:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,10 +51,16 @@ integrators, every friction mode with its history, Schwartz and
 elastic–plastic rolling, the user force model; ``dem.forces``'s list and
 wall passes; ``dem.mesh``'s sphere–triangle coupling;
 ``vehicle.granular_terrain``; ``utils.samplers``; and ``io``'s writers,
-exporters and checkpoints), plain tensor code with no TPU kernel.  Its
-builders put the model on the card unless the caller passes
-``device="cpu"``; convex collision shapes, tracked vehicles and flexible
-BCE markers are refused, and so are periodic grids on the paths that only
-ever ran closed boxes.  Of ``io`` the YAML, URDF, ADAMS, OpenSim, FMI and
+exporters and checkpoints), plain tensor code with no TPU kernel; convex
+contact and tracked vehicles (``collision.mpr``, the convex branches of
+``detect_contacts``, ``collision.profile2d``, ``collision.ray``,
+``collision.decomp``; ``vehicle.tracked``, ``vehicle.track_shoes``,
+``models.m113``, ``models.decks.build_marder``, ``vehicle.crg``), and the
+other steppers (``physics.implicit``: HHT, Newmark and the projected Euler;
+``physics.explicit``; ``physics.external``: ODE blocks and the hydraulic
+actuator; ``core.rotation_functions``), plain tensor code with no TPU
+kernel.  Its builders put the model on the card unless the caller passes
+``device="cpu"``; flexible BCE markers are refused, and so are periodic
+grids on the paths that only ever ran closed boxes.  Of ``io`` the YAML, URDF, ADAMS, OpenSim, FMI and
 archive modules are not ported.
 """

@@ -5,12 +5,12 @@ batched tensors attached to bodies; detection emits a fixed-capacity masked
 ``Contacts`` buffer; contacts lower to cone-constrained triples appended to
 the bilateral rows and solved in the same VI (``nsc_step``).
 
-Ported: spheres, boxes and triangle meshes (sphere–sphere through the
-cell-slot feature table, sphere–box and sphere–triangle dense, or the
-``mesh_candidates`` nearest triangles a sphere), and rolling friction.
-General convex shapes need the MPR narrowphase (``collision/mpr.py``),
-which comes in a later slice: a ``CollisionModel`` with convex shapes is
-refused.
+Every pair kind of the JAX package: sphere–sphere through the cell-slot
+feature table, sphere–box dense, general convex shapes through the MPR
+narrowphase (``collision/mpr.py``: convex–convex on the dense ``i < j``
+pairs, convex–sphere on every sphere and shape), triangle meshes against
+spheres (closed form) and convex shapes (``mpr.convex_triangle``), dense
+or on the ``mesh_candidates`` nearest triangles, and rolling friction.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ import torch
 from torch import Tensor
 
 from chrono_tpu_torch.collision import narrowphase as nphase
+from chrono_tpu_torch.collision.mpr import (
+    SPHERE as _MPR_SPHERE, ConvexShape, convex_triangle, mpr_contact,
+)
 from chrono_tpu_torch.collision.cell_list import (
     GridSpec, build_feature_table, cell_ijk, neighbor_feature_rows,
     refuse_periodic, topk_select,
@@ -68,18 +71,18 @@ class BoxShapes:
 
 @tensor_dataclass
 class ConvexShapes:
-    """K general convex shapes (the MPR narrowphase's): the carrier only.
-    ``collision/mpr.py`` comes in a later slice, and a ``CollisionModel``
-    holding convex shapes is refused."""
+    """K general convex shapes attached to bodies (MPR narrowphase);
+    ``kind`` / ``data`` / ``verts`` follow ``collision.mpr.ConvexShape``."""
 
-    body: Tensor
-    kind: Tensor
-    pos: Tensor
-    rot: Tensor
-    data: Tensor
-    verts: Tensor
-    mu: Tensor
-    family: Tensor = None
+    body: Tensor     # (K,) int32
+    kind: Tensor     # (K,) int32 mpr type code
+    pos: Tensor      # (K, 3) local offset
+    rot: Tensor      # (K, 4) local rotation
+    data: Tensor     # (K, 3) sized parameters
+    verts: Tensor    # (K, V, 3) local hull vertices (zeros for non-hulls)
+    mu: Tensor       # (K,)
+    family: Tensor = None  # (K,) int32 — shapes sharing a family > 0 never
+    #                        collide with each other (collision families)
 
     @property
     def n(self) -> int:
@@ -120,15 +123,6 @@ class MeshShapes:
             mu=torch.full((T,), mu, dtype=torch.float32, device=device))
 
 
-CONVEX_REFUSAL = ("convex collision shapes are not ported yet: the MPR "
-                  "narrowphase (collision/mpr.py) comes in a later slice")
-
-
-def refuse_convex(convex) -> None:
-    if convex is not None and convex.n > 0:
-        raise NotImplementedError(CONVEX_REFUSAL)
-
-
 @tensor_dataclass
 class CollisionModel:
     """All collision geometry of a scene + the pipeline's capacities."""
@@ -145,12 +139,12 @@ class CollisionModel:
     # torque limit = μ·γ_n); non-zero → 3 extra rolling rows per contact
     mu_roll: float = 0.0
     mu_spin: float = 0.0
-    # mesh narrowphase candidate pruning: 0 = dense S×T pairs; >0 = the
-    # mesh_candidates nearest triangles a sphere by bounding-sphere score
+    # mesh narrowphase candidate pruning: 0 = dense S×T / K×T pairs; >0 =
+    # the mesh_candidates nearest triangles a sphere or convex shape by
+    # bounding-sphere score
     mesh_candidates: int = 0
 
     def __post_init__(self):
-        refuse_convex(self.convex)
         refuse_periodic(self.grid, "the contact pipeline")
 
     @property
@@ -181,21 +175,31 @@ def _sphere_world(shapes: SphereShapes, state: BodyState) -> Tensor:
     return state.x[b] + Q.qrotate(state.q[b], shapes.offset)
 
 
+def _convex_world(cv: ConvexShapes, state: BodyState) -> ConvexShape:
+    """The convex shapes posed in the world by their bodies."""
+    b = cv.body.long()
+    return ConvexShape(kind=cv.kind,
+                       pos=state.x[b] + Q.qrotate(state.q[b], cv.pos),
+                       rot=Q.qmul(state.q[b], cv.rot), data=cv.data,
+                       verts=cv.verts)
+
+
 def detect_contacts(coll: CollisionModel, state: BodyState) -> Contacts:
     """Broadphase (uniform grid) + narrowphase → masked contact buffer.
 
     Sphere–sphere through the cell-slot feature table, sphere–box dense,
-    sphere–triangle dense or on the ``mesh_candidates`` nearest triangles;
-    friction combined by the minimum rule.  Each segment packs its
-    candidates as 11-channel rows ``[gap, n(3), p(3), mu, r_eff, body_a,
-    body_b]`` and one stable sort keeps the first ``max_contacts`` valid
-    ones, in segment order (``topk_select``).
+    convex–convex (dense ``i < j``, families respected) and convex–sphere
+    through MPR, then sphere–triangle and convex–triangle dense or on the
+    ``mesh_candidates`` nearest triangles; friction combined by the minimum
+    rule.  Each segment packs its candidates as 11-channel rows ``[gap,
+    n(3), p(3), mu, r_eff, body_a, body_b]`` and one stable sort keeps the
+    first ``max_contacts`` valid ones, in the JAX package's segment order
+    (``topk_select``).
 
     Float-coded indices: the feature rows and the packed rows carry body
     and sphere indices as channels of the state's float type, as the JAX
     package's do; in float32 they are exact below 2^24 bodies and spheres.
     """
-    refuse_convex(coll.convex)
     sp = coll.spheres
     S = sp.n
     dt = state.x.dtype
@@ -259,24 +263,64 @@ def detect_contacts(coll: CollisionModel, state: BodyState) -> Contacts:
              torch.minimum(sp.mu[:, None], bx.mu[None, :]),
              sp.radius[:, None])
 
-    # triangle-mesh shapes: sphere–triangle closed form
-    if coll.meshes is not None and coll.meshes.n > 0 and S > 0:
+    # general convex shapes via MPR: convex–convex (dense i<j) and
+    # convex–sphere
+    if coll.convex is not None and coll.convex.n > 0:
+        cv = coll.convex
+        K = cv.n
+        world = _convex_world(cv, state)
+        dev = centers.device
+        if K > 1:
+            iu, ju = torch.triu_indices(K, K, 1, device=dev)
+            gap_cc, n_cc, p_cc = mpr_contact(
+                ConvexShape(*(x[iu] for x in world)),
+                ConvexShape(*(x[ju] for x in world)))
+            cc_ok = (gap_cc < min(coll.envelope, 0.0)) & (cv.body[iu]
+                                                          != cv.body[ju])
+            if cv.family is not None:
+                fam = cv.family
+                cc_ok &= ~((fam[iu] == fam[ju]) & (fam[iu] > 0))
+            pack(cc_ok, cv.body[iu], cv.body[ju], gap_cc, n_cc, p_cc,
+                 torch.minimum(cv.mu[iu], cv.mu[ju]),
+                 torch.full_like(gap_cc, DEFAULT_EFF_RADIUS))
+        if S > 0:
+            ii = torch.arange(S, device=dev)[:, None].expand(S, K).reshape(-1)
+            jj = torch.arange(K, device=dev)[None, :].expand(S, K).reshape(-1)
+            zero = torch.zeros_like(sp.radius[ii])
+            sph = ConvexShape(
+                kind=torch.full((S * K,), _MPR_SPHERE, dtype=torch.int32,
+                                device=dev),
+                pos=centers[ii],
+                rot=Q.qidentity((S * K,), dtype=dt, device=dev),
+                data=torch.stack([sp.radius[ii], zero, zero], -1),
+                verts=torch.zeros((S * K,) + tuple(cv.verts.shape[1:]),
+                                  dtype=dt, device=dev))
+            gap_sc, n_sc, p_sc = mpr_contact(
+                sph, ConvexShape(*(x[jj] for x in world)))
+            sc_ok = (gap_sc < min(coll.envelope, 0.0)) & (sp.body[ii]
+                                                          != cv.body[jj])
+            pack(sc_ok, sp.body[ii], cv.body[jj], gap_sc, n_sc, p_sc,
+                 torch.minimum(sp.mu[ii], cv.mu[jj]), sp.radius[ii])
+
+    # triangle-mesh shapes: sphere–triangle closed form, convex–triangle
+    # through the support-plane narrowphase
+    if coll.meshes is not None and coll.meshes.n > 0:
         ms = coll.meshes
         T = ms.n
         mb = ms.body.long()
         w0 = state.x[mb] + Q.qrotate(state.q[mb], ms.v0)   # (T,3) world
         w1 = state.x[mb] + Q.qrotate(state.q[mb], ms.v1)
         w2 = state.x[mb] + Q.qrotate(state.q[mb], ms.v2)
+        cen_t = (w0 + w1 + w2) / 3.0
+        rad_t = torch.sqrt(torch.maximum(torch.maximum(
+            torch.sum((w0 - cen_t) ** 2, dim=1),
+            torch.sum((w1 - cen_t) ** 2, dim=1)),
+            torch.sum((w2 - cen_t) ** 2, dim=1)))
         Kc = coll.mesh_candidates
-        if Kc and Kc < T:
+        if S > 0 and Kc and Kc < T:
             # bounding-sphere scored candidates: the exact narrowphase on
             # the Kc nearest triangles a sphere, nearest first (a stable
             # sort: equal scores in triangle order, as lax.top_k keeps them)
-            cen_t = (w0 + w1 + w2) / 3.0
-            rad_t = torch.sqrt(torch.maximum(torch.maximum(
-                torch.sum((w0 - cen_t) ** 2, dim=1),
-                torch.sum((w1 - cen_t) ** 2, dim=1)),
-                torch.sum((w2 - cen_t) ** 2, dim=1)))
             d2 = torch.sum((centers[:, None, :] - cen_t[None]) ** 2, dim=2)
             score = d2 - (rad_t[None] + sp.radius[:, None]
                           + coll.envelope) ** 2
@@ -289,7 +333,7 @@ def detect_contacts(coll: CollisionModel, state: BodyState) -> Contacts:
             pack(st_ok, sp.body[:, None], ms.body[tidx], gap_t, n_t, p_t,
                  torch.minimum(sp.mu[:, None], ms.mu[tidx]),
                  sp.radius[:, None])
-        else:
+        elif S > 0:
             gap_t, n_t, p_t = nphase.sphere_triangle(
                 centers[:, None, :], sp.radius[:, None],
                 w0[None], w1[None], w2[None])              # (S, T)
@@ -298,6 +342,46 @@ def detect_contacts(coll: CollisionModel, state: BodyState) -> Contacts:
             pack(st_ok, sp.body[:, None], ms.body[None, :], gap_t, n_t,
                  p_t, torch.minimum(sp.mu[:, None], ms.mu[None, :]),
                  sp.radius[:, None])
+        if coll.convex is not None and coll.convex.n > 0:
+            # support-plane narrowphase (mpr.convex_triangle), not MPR: the
+            # portal depth along MPR's interior ray overestimates shallow
+            # penetrations against off-center triangles
+            cv = coll.convex
+            K = cv.n
+            world = _convex_world(cv, state)
+            dev = centers.device
+            if Kc and Kc < T:
+                # the same pruning: the shape's bounding radius from its
+                # data and vertices (a coarse upper bound)
+                r_cv = torch.maximum(
+                    torch.sqrt(torch.sum(cv.data ** 2, dim=1)),
+                    torch.sqrt(torch.amax(torch.sum(cv.verts ** 2, dim=2),
+                                          dim=1)))
+                d2c = torch.sum((world.pos[:, None, :] - cen_t[None]) ** 2,
+                                dim=2)
+                scc = d2c - (rad_t[None] + r_cv[:, None]
+                             + coll.envelope) ** 2
+                tjj = torch.sort(scc, dim=1, stable=True).indices[:, :Kc]
+                ii = torch.arange(K, device=dev)[:, None].expand(
+                    K, Kc).reshape(-1)
+                jj = tjj.reshape(-1)
+            else:
+                ii = torch.arange(K, device=dev)[:, None].expand(
+                    K, T).reshape(-1)
+                jj = torch.arange(T, device=dev)[None, :].expand(
+                    K, T).reshape(-1)
+            # (pairs, 5) manifold points: the perturbed-support face
+            # manifold and the edge fallback
+            gap_ct, n_ct, p_ct, ok_m = convex_triangle(
+                ConvexShape(*(x[ii] for x in world)), w0[jj], w1[jj],
+                w2[jj])
+            ct_ok = (ok_m & (gap_ct < coll.envelope)
+                     & (cv.body[ii] != ms.body[jj])[:, None])
+            pack(ct_ok, cv.body[ii][:, None], ms.body[jj][:, None], gap_ct,
+                 n_ct, p_ct, torch.broadcast_to(
+                     torch.minimum(cv.mu[ii], ms.mu[jj])[:, None],
+                     gap_ct.shape),
+                 torch.full_like(gap_ct, DEFAULT_EFF_RADIUS))
 
     if not segs_ok:
         # geometry-free scene (contacts supplied entirely through

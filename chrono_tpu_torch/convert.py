@@ -15,8 +15,11 @@ turn such mappings into the port's objects.  The vehicle's carriers (the tires'
 parameters, ``PowertrainParams``, ``WheeledVehicle``, ``SCMParams`` /
 ``SCMState``, ``Rover`` and the drivers) come across the same way, and
 so do the neighbour-list DEM system's ``DEMState`` (its list and
-histories), ``TriangleMesh`` / ``MeshBins`` and the granular terrain's
-``GranularFSIState``.  The NSC
+histories), ``TriangleMesh`` / ``MeshBins``, the granular terrain's
+``GranularFSIState``, the contact pipeline's convex shapes, the tracked
+vehicles (``TrackedVehicle`` / ``TrackParams``, ``SegmentedTrack``,
+``DoublePinTrack``, ``SprocketGear``), the 2-D profiles, the hydraulic
+actuator's ``HydraulicParams`` and the rotation functions.  The NSC
 multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
@@ -32,6 +35,8 @@ import torch
 
 from chrono_tpu_torch.collision import pipeline as cp
 from chrono_tpu_torch.collision.cell_list import GridSpec
+from chrono_tpu_torch.collision import profile2d as p2d
+from chrono_tpu_torch.core import rotation_functions as RF
 from chrono_tpu_torch.core import functions as F
 from chrono_tpu_torch.dem import bc
 from chrono_tpu_torch.dem.bc import PlaneBCs
@@ -47,6 +52,7 @@ from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
 from chrono_tpu_torch.models.rover import Rover
 from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
 from chrono_tpu_torch.physics import force_elements as fe
+from chrono_tpu_torch.physics.external import HydraulicParams
 from chrono_tpu_torch.physics.body import BodyProps, BodyState
 from chrono_tpu_torch.physics.joints import JointData
 from chrono_tpu_torch.physics.motors import MotorData
@@ -60,6 +66,8 @@ from chrono_tpu_torch.vehicle.granular_terrain import GranularFSIState
 from chrono_tpu_torch.vehicle import tire as tr
 from chrono_tpu_torch.vehicle.powertrain import PowertrainParams
 from chrono_tpu_torch.vehicle.terrain import SCMParams, SCMState
+from chrono_tpu_torch.vehicle import track_shoes as ts
+from chrono_tpu_torch.vehicle.tracked import TrackedVehicle, TrackParams
 from chrono_tpu_torch.vehicle.wheeled import WheeledVehicle
 
 
@@ -382,25 +390,42 @@ def mbs_model_from_numpy(leaves: Mapping[str, Any], *, device) -> Model:
         bushings=optional("bushings", fe.BushingData))
 
 
+def convex_shapes_from_numpy(leaves: Mapping[str, Any], *, device
+                             ) -> cp.ConvexShapes:
+    """``ConvexShapes`` on ``device`` from the JAX ``ConvexShapes`` fields
+    (``body``, ``kind``, ``pos``, ``rot``, ``data``, ``verts``, ``mu`` and
+    ``family`` or None): int32 indices, kinds and families, float32
+    otherwise."""
+    fam = leaves.get("family")
+    return cp.ConvexShapes(
+        **{f: torch.as_tensor(np.asarray(leaves[f], np.float32),
+                              device=device)
+           for f in ("pos", "rot", "data", "verts", "mu")},
+        **{f: torch.as_tensor(np.asarray(leaves[f], np.int32),
+                              device=device) for f in ("body", "kind")},
+        family=(None if not _present(fam) else torch.as_tensor(
+            np.asarray(fam, np.int32), device=device)))
+
+
 def collision_model_from_numpy(leaves: Mapping[str, Any], *, device
                                ) -> cp.CollisionModel:
     """The contact pipeline's ``CollisionModel`` on ``device`` from the JAX
-    ``CollisionModel``'s leaves: ``spheres`` and ``boxes`` / ``meshes`` (or
-    None) as mappings of their fields, ``grid`` as for
+    ``CollisionModel``'s leaves: ``spheres`` and ``boxes`` / ``convex`` /
+    ``meshes`` (or None) as mappings of their fields (``convex`` as for
+    :func:`convex_shapes_from_numpy`), ``grid`` as for
     :func:`grid_from_numpy`, and the capacities, ``envelope``, ``mu_roll``,
-    ``mu_spin`` and ``mesh_candidates``.  Convex shapes are not ported: a
-    model with them is refused."""
-    convex = leaves.get("convex")
-    if convex is not None and np.asarray(convex["body"]).size:
-        raise NotImplementedError(cp.CONVEX_REFUSAL)
+    ``mu_spin`` and ``mesh_candidates``."""
 
     def shapes(key, cls):
         v = leaves.get(key)
         return None if v is None else _carrier(cls, v, device)
 
+    convex = leaves.get("convex")
     return cp.CollisionModel(
         spheres=_carrier(cp.SphereShapes, leaves["spheres"], device),
         boxes=shapes("boxes", cp.BoxShapes),
+        convex=(None if convex is None
+                else convex_shapes_from_numpy(convex, device=device)),
         meshes=shapes("meshes", cp.MeshShapes),
         grid=grid_from_numpy(leaves["grid"]),
         max_per_cell=int(leaves["max_per_cell"]),
@@ -591,3 +616,101 @@ def driver_from_numpy(name: str, leaves: Mapping[str, Any], *, device):
     ``PIDState`` as a nested mapping."""
     return _float_carrier(DRIVERS[name], leaves, device,
                           nested={"state": drv.PIDState})
+
+
+# ------------------------------------------------- tracked vehicles, misc
+
+def tracked_vehicle_from_numpy(leaves: Mapping[str, Any], *, device
+                               ) -> TrackedVehicle:
+    """``TrackedVehicle`` from the JAX one's leaves: ``model`` as for
+    :func:`mbs_model_from_numpy`, ``track`` the ``TrackParams`` fields
+    (``n_patches`` static), the scalars, and the static ``chassis`` /
+    ``sprockets``."""
+    return TrackedVehicle(
+        model=mbs_model_from_numpy(leaves["model"], device=device),
+        track=_float_carrier(TrackParams, leaves["track"], device),
+        **_float_fields(TrackedVehicle, leaves, device,
+                        skip=("model", "track")))
+
+
+def _plain(v):
+    """A host value of a NamedTuple carrier: lists and tuples as tuples
+    of Python numbers, arrays and scalars as Python numbers."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_plain(x) for x in v)
+    a = np.asarray(v)
+    if a.ndim:
+        return tuple(_plain(x) for x in a)
+    return a.item()
+
+
+def _host_tuple(cls, leaves: Mapping[str, Any], lists=()):
+    kw = {k: _plain(leaves[k]) for k in cls._fields if k in leaves}
+    for k in lists:
+        kw[k] = list(kw[k])
+    return cls(**kw)
+
+
+def segmented_track_from_numpy(leaves: Mapping[str, Any]
+                               ) -> ts.SegmentedTrack:
+    """``vehicle.track_shoes.SegmentedTrack`` (host values: body ids, pitch,
+    radius, half extents) from the JAX one's fields."""
+    return _host_tuple(ts.SegmentedTrack, leaves, lists=("shoes",))
+
+
+def double_pin_track_from_numpy(leaves: Mapping[str, Any]
+                                ) -> ts.DoublePinTrack:
+    return _host_tuple(ts.DoublePinTrack, leaves,
+                       lists=("shoes", "connectors"))
+
+
+def sprocket_gear_from_numpy(leaves: Mapping[str, Any]) -> ts.SprocketGear:
+    """``vehicle.track_shoes.SprocketGear`` (host values) from the JAX
+    one's fields."""
+    return _host_tuple(ts.SprocketGear, leaves)
+
+
+def profile2d_from_numpy(leaves: Mapping[str, Any], *, device
+                         ) -> p2d.Profile2D:
+    """``collision.profile2d.Profile2D``: the body and the frame as host
+    values, the elements as float32 tensors on ``device``."""
+    host = ("body", "frame_rot", "frame_pos")
+    return p2d.Profile2D(
+        **{k: _plain(leaves[k]) for k in host},
+        **{k: torch.as_tensor(np.asarray(leaves[k], np.float32),
+                              device=device)
+           for k in p2d.Profile2D._fields if k not in host})
+
+
+def profile_circles_from_numpy(leaves: Mapping[str, Any], *, device
+                               ) -> p2d.ProfileCircles:
+    return p2d.ProfileCircles(
+        body=torch.as_tensor(np.asarray(leaves["body"], np.int32),
+                             device=device),
+        **{k: torch.as_tensor(np.asarray(leaves[k], np.float32),
+                              device=device)
+           for k in ("offset", "radius", "mu")})
+
+
+def hydraulic_params_from_numpy(leaves: Mapping[str, Any], *, device
+                                ) -> HydraulicParams:
+    return _float_carrier(HydraulicParams, leaves, device)
+
+
+ROTATION_FUNCTIONS = {cls.__name__: cls for cls in (
+    RF.RotConst, RF.RotAxisAngle, RF.RotSlerp, RF.RotABC)}
+
+
+def rotation_function_from_numpy(leaves: Mapping[str, Any], *, device):
+    """A ``core.rotation_functions`` function from ``{"class": name, field:
+    value, …}``: arrays become float32 tensors on ``device``, a scalar
+    program (``angle``, ``fa``, ``fb``, ``fc``) a mapping as for
+    :func:`motion_function_from_numpy`."""
+    cls = ROTATION_FUNCTIONS[leaves["class"]]
+    kw = {}
+    for f in fields(cls):
+        v = leaves[f.name]
+        kw[f.name] = (motion_function_from_numpy(v, device=device)
+                      if isinstance(v, Mapping) else torch.as_tensor(
+                          np.array(v, np.float32), device=device))
+    return cls(**kw)

@@ -1,10 +1,12 @@
 """Ready-made models (counterpart of ``chrono_tpu.models``): the HMMWV,
-sedan and Polaris decks, the other wheeled decks of ``models.decks`` and
-the rovers.  Ported so far: these; the tracked deck (``build_marder``) is
-refused until ``vehicle/tracked.py`` is ported, and the robots, the
-industrial arms and the M113 wait for later slices."""
+sedan and Polaris decks, the other wheeled decks of ``models.decks``, the
+rovers, and the tracked M113 and Marder.  Ported so far: these; the
+robots and the industrial arms wait for later slices."""
 
 from chrono_tpu_torch.models.hmmwv import HMMWV_SPEC, create_hmmwv
+from chrono_tpu_torch.models.m113 import (
+    M113_SPEC, build_m113, m113_acceleration_run,
+)
 from chrono_tpu_torch.models.rover import (
     Rover, create_curiosity, create_rover, rover_step_scm, set_wheel_speeds,
 )

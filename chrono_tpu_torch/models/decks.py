@@ -4,8 +4,8 @@ Counterpart of ``chrono_tpu/models/decks.py``: a model is a parameter deck
 for the generic wheeled builder (public-spec masses, geometry, engine and
 tire scaling applied to ``build_wheeled_vehicle``), callable as
 ``create_vehicle(name, **kw)`` or through the per-family ``create_*``
-functions.  The tracked deck (``build_marder``) waits for the tracked
-vehicle (``vehicle/tracked.py``) and is refused.
+functions.  The tracked deck, ``build_marder``, builds on the band-track
+formulation of ``vehicle.tracked``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import torch
 
 from chrono_tpu_torch.models.common import powertrain_deck, tensors
 from chrono_tpu_torch.vehicle.tire import TMeasyParams
+from chrono_tpu_torch.vehicle.tracked import (
+    TrackParams, build_tracked_vehicle,
+)
 from chrono_tpu_torch.vehicle.wheeled import build_wheeled_vehicle
 
 
@@ -247,11 +250,15 @@ create_mrole = _deck("mrole")
 create_mtv = _deck("mtv")
 create_unimog = _deck("unimog")
 
-TRACKED_REFUSAL = ("tracked vehicles are not ported yet (vehicle/tracked.py "
-                   "comes in a later slice)")
-
-
-def build_marder(pos=(0.0, 0.0, None)):
-    """Marder-class IFV on the tracked-vehicle formulation: refused until
-    ``vehicle/tracked.py`` is ported."""
-    raise NotImplementedError(TRACKED_REFUSAL)
+def build_marder(pos=(0.0, 0.0, None), dtype=torch.float32, device=None):
+    """Marder-class IFV on the tracked-vehicle formulation (~28.5 t, a
+    wider and longer track footprint than the M113); ``(TrackedVehicle,
+    BodyState)`` on the card unless ``device`` names another."""
+    track = TrackParams(n_patches=8, **tensors(
+        dtype, device, sprocket_radius=0.264, track_length=3.9,
+        track_width=0.45, kz=1.4e6, cz=1.2e5, mu_lon=0.85, mu_lat=0.65,
+        slip_v0=0.15, rolling_resistance=0.028))
+    return build_tracked_vehicle(
+        chassis_mass=28500.0, chassis_inertia=(38000.0, 110000.0, 120000.0),
+        sprocket_inertia=45.0, half_track=1.25, ride_height=0.55,
+        track=track, pos=pos, dtype=dtype, device=device)

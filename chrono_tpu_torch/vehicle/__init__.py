@@ -4,9 +4,11 @@ Ported: the suspension templates (``suspension``), the tire models
 (``tire``: TMeasy, Fiala, Pacejka 89 and 2002, TMsimple), rigid and SCM
 terrain (``terrain``), the powertrain, the drivers, the wheeled vehicle
 and its step (``wheeled``), the closed path-following loop
-(``closed_loop``), the drawbar-pull rig (``dbp``) and granular (DEM)
-terrain (``granular_terrain``).  OpenCRG roads, tracked vehicles and the
-FEA tire wait for later slices.
+(``closed_loop``), the drawbar-pull rig (``dbp``), granular (DEM)
+terrain (``granular_terrain``), tracked vehicles (``tracked``: the band
+track; ``track_shoes``: single- and double-pin shoe chains and the
+sprocket gear) and OpenCRG roads (``crg``).  The FEA tire waits for a
+later slice.
 """
 
 from chrono_tpu_torch.vehicle.tire import (
@@ -35,4 +37,10 @@ from chrono_tpu_torch.vehicle.dbp import dbp_curve, run_dbp_rig
 from chrono_tpu_torch.vehicle.granular_terrain import (
     GranularFSIState, granular_step, make_granular_advance_fn,
     make_granular_terrain_state,
+)
+from chrono_tpu_torch.vehicle.tracked import (
+    TrackedVehicle, TrackParams, build_tracked_vehicle, tracked_step,
+)
+from chrono_tpu_torch.vehicle.crg import (
+    CRGRoad, crg_height, crg_path, crg_to_heightmap, load_crg,
 )

@@ -20,7 +20,8 @@ touch; ``bench_suite.py``'s ``bench_mixer`` cut to 125 spheres.
   ``general_mixer_scene``) must equal the converted one;
 - ``smc_contact_forces`` for every force, adhesion and tangential model,
   and one ``smc_step``;
-- the refusals: convex shapes, the card by default; shafts, once refused,
+- convex shapes, once refused, carried by ``convert`` and detected as the
+  JAX package detects them; the card by default; shafts, once refused,
   pass through both contact steps.
 
 The JAX references are jitted once each (XLA's backend optimisations off);
@@ -574,20 +575,53 @@ def test_smc_step(detected):
 # ----------------------------------------------------------------- refusals
 
 def test_refusals(detected):
+    """Convex shapes, once refused, are carried and detected: a capsule on
+    the moving body and a convex box on the ground added to the detection
+    scene, carried by ``convert.collision_model_from_numpy`` and detected
+    as the JAX package detects them (float64 on both sides: MPR's
+    tolerance, gap 1e-5 and normal / point 1e-4; sphere–convex,
+    convex–convex and convex–triangle rows in its segment order).  Shafts,
+    the card by default and an unknown solver as before."""
     jm, jc, js, _, _ = detected["dense"]
     tm, tc, ts = carry(jm, jc, js)
-    cv = tpipe.ConvexShapes(
-        body=torch.zeros(1, dtype=torch.int32),
-        kind=torch.zeros(1, dtype=torch.int32), pos=torch.zeros(1, 3),
-        rot=torch.tensor([[1.0, 0, 0, 0]]), data=torch.ones(1, 3),
-        verts=torch.zeros(1, 1, 3), mu=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="collision/mpr.py"):
-        tc.replace(convex=cv)
+    qy = np.array([np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0])
+    cv = {"body": np.asarray([jm.n_bodies - 1, 0], np.int32),
+          "kind": np.asarray([2, 1], np.int32),          # capsule, box
+          "pos": np.asarray([[0.12, 0.0, 0.0], [0.3, 0.6, -0.08]],
+                            np.float32),
+          "rot": np.asarray([qy, [1.0, 0, 0, 0]], np.float32),
+          "data": np.asarray([[0.07, 0.1, 0.0], [0.25, 0.2, 0.1]],
+                             np.float32),
+          "verts": np.zeros((2, 8, 3), np.float32),
+          "mu": np.asarray([0.4, 0.45], np.float32),
+          "family": np.asarray([0, 0], np.int32)}
     lv = leaves(jc)
-    lv["convex"] = {k: v.numpy() for k, v in dataclasses.asdict(cv).items()
-                    if v is not None}
-    with pytest.raises(NotImplementedError, match="collision/mpr.py"):
-        convert.collision_model_from_numpy(lv, device="cpu")
+    lv["convex"] = cv
+    tcv = convert.collision_model_from_numpy(lv, device="cpu")
+    assert tcv.convex.n == 2
+    for k, v in cv.items():
+        np.testing.assert_array_equal(getattr(tcv.convex, k).numpy(), v)
+    jcv = jc.replace(convex=jpipe.ConvexShapes(
+        **{k: jnp.asarray(v) for k, v in cv.items()}))
+    with jax.enable_x64(True):
+        ref = contacts_np(jit(lambda s: jpipe.detect_contacts(
+            j64(jcv), s))(j64(js)))
+    got = tpipe.detect_contacts(t64(tcv), t64(ts))
+    n_plain = int(detected["dense"][4].count)
+    assert int(got.count) == int(ref["count"]) > n_plain
+    np.testing.assert_array_equal(got.active.numpy(), ref["active"])
+    act = ref["active"]
+    for f in ("body_a", "body_b"):
+        np.testing.assert_array_equal(getattr(got, f).numpy()[act],
+                                      ref[f][act], err_msg=f)
+    convex_bodies = (ref["body_a"][act] == jm.n_bodies - 1) | (
+        ref["body_b"][act] == jm.n_bodies - 1)
+    assert convex_bodies.any()
+    for f, atol in (("gap", 1e-5), ("normal", 1e-4), ("point", 1e-4),
+                    ("mu", 0), ("r_eff", 1e-7)):
+        np.testing.assert_allclose(getattr(got, f).numpy()[act],
+                                   ref[f][act], rtol=1e-5, atol=atol,
+                                   err_msg=f)
     # shafts, once refused here, are taken: a zero torque pair leaves both
     # contact steps as they were (tests/test_torch_shafts.py holds shafts
     # to the JAX package)

@@ -3,15 +3,16 @@ rovers on SCM soil and the drawbar-pull rig.
 
 Every wheeled deck (``create_hmmwv``, ``create_sedan`` and
 ``create_polaris`` in both suspensions, each ``create_<name>`` of
-``models.decks``), ``build_wheeled_vehicle`` in both suspensions, and both
-rovers are built by both packages; the port's vehicle must equal the JAX
-one carried across by ``convert``: integer leaves and the static body
-indices to the bit, float leaves within 1e-7 relative.  Then Curiosity on
+``models.decks``), ``build_wheeled_vehicle`` in both suspensions, both
+rovers and the tracked ``build_marder`` are built by both packages; the
+port's vehicle must equal the JAX one carried across by ``convert``:
+integer leaves and the static body indices to the bit, float leaves within
+1e-7 relative.  Then Curiosity on
 SCM (the scene of tests/test_models_modal.py:110-140, its shaft
 differential included) for 50 steps, a short drawbar-pull rig (the rig of
 tests/test_dbp.py, 50 settling and 50 pulling steps at two slips) and one
 step of the Polaris wishbone build steered through its rack, each held to
-the JAX package, and the tracked deck's refusal.
+the JAX package.
 """
 
 from __future__ import annotations
@@ -196,8 +197,16 @@ def test_wishbone_step_steers_through_the_rack():
 
 
 def test_tracked_deck_is_refused():
-    with pytest.raises(NotImplementedError, match="vehicle/tracked.py"):
-        tm.build_marder()
+    """The tracked deck, once refused, builds: ``build_marder`` equals the
+    JAX builder's vehicle carried across by ``convert`` (integers and
+    static indices to the bit, floats within 1e-7 relative) and its state
+    the JAX one.  tests/test_torch_tracked.py drives it."""
+    jv, js = jm.build_marder()
+    tv, ts = tm.build_marder(device="cpu")
+    assert_same_leaves(tv, convert.tracked_vehicle_from_numpy(
+        leaves(jv), device="cpu"))
+    assert_same_leaves(ts, convert.body_state_from_numpy(
+        {f: np.asarray(getattr(js, f)) for f in "xqvw"}, device="cpu"))
 
 
 def test_decks_default_to_the_card():
