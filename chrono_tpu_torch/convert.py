@@ -19,7 +19,9 @@ histories), ``TriangleMesh`` / ``MeshBins``, the granular terrain's
 ``GranularFSIState``, the contact pipeline's convex shapes, the tracked
 vehicles (``TrackedVehicle`` / ``TrackParams``, ``SegmentedTrack``,
 ``DoublePinTrack``, ``SprocketGear``), the 2-D profiles, the hydraulic
-actuator's ``HydraulicParams`` and the rotation functions.  The NSC
+actuator's ``HydraulicParams``, the rotation functions, the robots
+(``Arm6R``, ``ArmSCARA``, ``Trajectory``, ``Copter``, ``Turtlebot``) and
+the sensors (``NoiseModel``, ``IMUSensor``, ``GPSSensor``, ``RayScene``).  The NSC
 multiplier maps move γ
 between this port's single-sided layout and the JAX dense reference's pair
 lattice.  So this package never sees JAX.
@@ -49,6 +51,8 @@ from chrono_tpu_torch.fsi.crm_terrain import CRMFSIState
 from chrono_tpu_torch.fsi.system import FSIState
 from chrono_tpu_torch.fsi.sph.crm import CRMParams, CRMState
 from chrono_tpu_torch.fsi.sph.state import SPHParams, SPHState
+from chrono_tpu_torch.models.industrial import Arm6R, ArmSCARA, Trajectory
+from chrono_tpu_torch.models.robots import Copter, Turtlebot
 from chrono_tpu_torch.models.rover import Rover
 from chrono_tpu_torch.ops.cuda.sph_substep import SortedCells
 from chrono_tpu_torch.physics import force_elements as fe
@@ -58,6 +62,7 @@ from chrono_tpu_torch.physics.joints import JointData
 from chrono_tpu_torch.physics.motors import MotorData
 from chrono_tpu_torch.physics import shafts as sh
 from chrono_tpu_torch.physics.smc import SMCParams
+from chrono_tpu_torch import sensors
 from chrono_tpu_torch.physics.system import Model
 from chrono_tpu_torch.solver.nsc_pencil import NSCPencilParams
 from chrono_tpu_torch.utils.tree import is_static
@@ -714,3 +719,73 @@ def rotation_function_from_numpy(leaves: Mapping[str, Any], *, device):
                       if isinstance(v, Mapping) else torch.as_tensor(
                           np.array(v, np.float32), device=device))
     return cls(**kw)
+
+
+# ------------------------------------------------------ robots and sensors
+
+def arm6r_from_numpy(leaves: Mapping[str, Any], *, device) -> Arm6R:
+    """``models.industrial.Arm6R`` (float32 lengths, base pose) from the
+    JAX one's fields."""
+    return _float_carrier(Arm6R, leaves, device)
+
+
+def arm_scara_from_numpy(leaves: Mapping[str, Any], *, device) -> ArmSCARA:
+    """``models.industrial.ArmSCARA`` from the JAX one's fields (the static
+    ``right_elbow`` a bool)."""
+    return ArmSCARA(**_float_fields(ArmSCARA, leaves, device,
+                                    skip=("right_elbow",)),
+                    right_elbow=bool(np.asarray(leaves["right_elbow"])))
+
+
+def trajectory_from_numpy(leaves: Mapping[str, Any], *, device
+                          ) -> Trajectory:
+    """``models.industrial.Trajectory`` from the JAX one's fields (the
+    static ``law`` a string)."""
+    return Trajectory(**_float_fields(Trajectory, leaves, device,
+                                      skip=("law",)),
+                      law=str(np.asarray(leaves["law"])))
+
+
+def copter_from_numpy(leaves: Mapping[str, Any], *, device) -> Copter:
+    """``models.robots.Copter`` from the JAX one's leaves (``model`` as for
+    :func:`mbs_model_from_numpy`, the static ``body``)."""
+    return Copter(model=mbs_model_from_numpy(leaves["model"], device=device),
+                  **_float_fields(Copter, leaves, device, skip=("model",)))
+
+
+def turtlebot_from_numpy(leaves: Mapping[str, Any], *, device) -> Turtlebot:
+    """``models.robots.Turtlebot`` from the JAX one's leaves (``model`` as
+    for :func:`mbs_model_from_numpy`, the static ``chassis`` and
+    ``wheels``)."""
+    return Turtlebot(
+        model=mbs_model_from_numpy(leaves["model"], device=device),
+        **_float_fields(Turtlebot, leaves, device, skip=("model",)))
+
+
+def noise_model_from_numpy(leaves: Mapping[str, Any], *, device
+                           ) -> sensors.NoiseModel:
+    return _float_carrier(sensors.NoiseModel, leaves, device)
+
+
+def imu_from_numpy(leaves: Mapping[str, Any], *, device
+                   ) -> sensors.IMUSensor:
+    """``sensors.IMUSensor`` from the JAX one's fields, its two noise
+    models as nested mappings."""
+    return _float_carrier(sensors.IMUSensor, leaves, device, nested={
+        "accel_noise": sensors.NoiseModel, "gyro_noise": sensors.NoiseModel})
+
+
+def gps_from_numpy(leaves: Mapping[str, Any], *, device
+                   ) -> sensors.GPSSensor:
+    return _float_carrier(sensors.GPSSensor, leaves, device,
+                          nested={"noise": sensors.NoiseModel})
+
+
+def ray_scene_from_numpy(leaves: Mapping[str, Any], *, device
+                         ) -> sensors.RayScene:
+    """``sensors.RayScene`` from the JAX one's fields; an absent family
+    (None) stays absent."""
+    return sensors.RayScene(**{
+        f.name: torch.as_tensor(np.asarray(leaves[f.name], np.float32),
+                                device=device)
+        for f in fields(sensors.RayScene) if _present(leaves.get(f.name))})

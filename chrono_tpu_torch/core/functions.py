@@ -44,6 +44,24 @@ def _polyval(p: Tensor, x) -> Tensor:
     return y
 
 
+def linspace(start: float, stop: float, num: int, endpoint: bool = True,
+             dtype=torch.float32, device=None) -> Tensor:
+    """``num`` evenly spaced samples, computed as ``start·(1 − s) +
+    stop·s`` with ``s = k / div`` in ``dtype`` (the ends exact), the
+    arithmetic of ``jnp.linspace``, so sampled knots and ray fans match the
+    JAX package's to the bit."""
+    div = num - 1 if endpoint else num
+    if num <= 1:
+        return torch.full((num,), start, dtype=dtype, device=device)
+    s = torch.arange(div, dtype=dtype, device=device) / div
+    out = (torch.tensor(start, dtype=dtype, device=device) * (1 - s)
+           + torch.tensor(stop, dtype=dtype, device=device) * s)
+    if endpoint:
+        out = torch.cat([out, torch.full((1,), stop, dtype=dtype,
+                                         device=device)])
+    return out
+
+
 def interp(x, xp: Tensor, fp: Tensor) -> Tensor:
     """Piecewise-linear interpolation of 1-D knots (``jnp.interp``), held at
     the end values outside them.  The knots are indexed through a 1-D index

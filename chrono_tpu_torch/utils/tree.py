@@ -26,10 +26,17 @@ def is_static(field: dataclasses.Field) -> bool:
     return bool(field.metadata.get("static", False))
 
 
+#: class name → class of every carrier, for ``io.archive``
+REGISTRY: dict[str, type] = {}
+
+
 def tensor_dataclass(cls):
-    """Decorator: a frozen dataclass with ``replace(**changes)``."""
+    """Decorator: a frozen dataclass with ``replace(**changes)``, entered in
+    :data:`REGISTRY` under its name."""
     cls = dataclasses.dataclass(frozen=True)(cls)
     cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    if REGISTRY.setdefault(cls.__name__, cls) is not cls:
+        raise TypeError(f"two carriers named {cls.__name__}")
     return cls
 
 
